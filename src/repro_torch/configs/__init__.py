@@ -1,0 +1,14 @@
+"""Architecture registry of the port: ``get_config(name)`` returns the full
+config, ``reduced(cfg)`` the smoke-test variant.  Only the architectures the
+port serves are registered."""
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    REGISTRY,
+    StageSpec,
+    get_config,
+    reduced,
+)
+
+from repro_torch.configs import smollm_360m  # noqa: F401
+
+ALL_ARCHS = ["smollm-360m"]

@@ -1,0 +1,544 @@
+"""Program-once crossbar compilation: frozen programmed-weight artifacts
+(counterpart of ``repro.device.programmed``; sharding, planner datapaths,
+repair and aging are not part of this slice).
+
+* ``program_layer(w, spec, device_cfg, adc_cfg) -> ProgrammedLinear`` — the
+  programming-time entry point: quantized cell codes, device-perturbed
+  effective cells (``g_eff``), frozen scales, correction column sums.
+* ``programmed_matmul`` / ``programmed_linear`` — the steady-state forward:
+  quantize input -> crossbar VMM kernel -> dequantize -> offset correction.
+* ``program_model(params, ...) -> ProgrammedModel`` — walk a nested dict of
+  parameters and compile every projection.  Artifacts are keyed by the joined
+  parameter path ("stage0/b0/mixer/wq"); ``models.layers.crossbar_linear``
+  joins its call-site name with the active ``name_scope`` stack and looks the
+  key up in the ``bind_artifacts`` stack first and the model's ``by_name``
+  table second.
+
+Naming: a ``ProgrammedLinear``'s ``device`` field is the ``DeviceConfig`` the
+chip was programmed with (it is stored under that key in artifact manifests);
+the torch device is always the explicit ``device=`` *argument* of the entry
+points, and the ``DeviceConfig`` argument is called ``device_cfg``.
+
+Every scale is a 0-d float32 tensor on the artifact's device and the
+elementwise chain keeps the reference's literal order, so the float result
+matches the reference's rounding points.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.adc import ADCConfig, SAFE_ADAPTIVE
+from repro_torch.core.crossbar import (
+    CrossbarSpec,
+    DEFAULT_SPEC,
+    layer_scaled_spec,
+    quantize_input,
+    quantize_weight,
+)
+from repro_torch.device import models as dm
+from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda
+from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda
+
+# Every array leaf a ProgrammedLinear carries — the single source of truth
+# for serialization (checkpoint.save_programmed) and equality checks.
+ARTIFACT_ARRAY_FIELDS = (
+    "w_codes", "g_eff", "w_colsum", "w_scale", "x_scale", "g_spare", "out_gather",
+    "comp_scale",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgrammedLinear:
+    """One weight matrix compiled onto (possibly noisy) crossbars.
+
+    Array leaves:
+      * ``w_codes``: (K, N) int32 signed quantized weight codes.
+      * ``g_eff``: (S, K, N) float32 device-perturbed effective cell codes,
+        or None for ideal devices.
+      * ``w_colsum``: (N,) float32 column sums of the float weights (the
+        digital offset-correction term).
+      * ``w_scale``: 0-d float32 frozen weight quantization scale.
+      * ``x_scale``: 0-d float32 or None (None: dynamic per-call ``max(x)``).
+      * ``g_spare`` / ``out_gather``: spare-column block and routing tables
+        of a repaired chip, ``comp_scale``: (N,) drift-compensation output
+        scales.  ``comp_scale`` is applied when present; the others are the
+        hardware record and ride along so stores round-trip.
+
+    A *stacked* artifact carries leading layer axes on every array;
+    ``layer(i)`` peels one.  Static data: ``spec`` (layer-scaled),
+    ``adc_cfg`` / ``fast`` (which kernel serves it), ``device`` (the
+    ``DeviceConfig`` it was programmed with), ``t_service_s``, and
+    ``report`` / ``repair`` / ``plan`` carried as the store's plain JSON
+    values.
+    """
+
+    w_codes: torch.Tensor
+    g_eff: Optional[torch.Tensor]
+    w_colsum: torch.Tensor
+    w_scale: torch.Tensor
+    x_scale: Optional[torch.Tensor]
+    spec: CrossbarSpec
+    adc_cfg: Optional[ADCConfig] = None
+    fast: bool = True
+    report: Optional[Any] = None
+    g_spare: Optional[torch.Tensor] = None
+    out_gather: Optional[torch.Tensor] = None
+    repair: Optional[Any] = None
+    comp_scale: Optional[torch.Tensor] = None
+    device: Optional[dm.DeviceConfig] = None
+    t_service_s: float = 0.0
+    plan: Optional[Any] = None
+
+    @property
+    def noisy(self) -> bool:
+        return self.g_eff is not None
+
+    @property
+    def stacked(self) -> bool:
+        return self.w_codes.ndim >= 3
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.w_codes.shape)
+
+    def map_arrays(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "ProgrammedLinear":
+        """A copy with ``fn`` applied to every non-None array leaf."""
+        return dataclasses.replace(
+            self,
+            **{
+                f: fn(getattr(self, f))
+                for f in ARTIFACT_ARRAY_FIELDS
+                if getattr(self, f) is not None
+            },
+        )
+
+    def layer(self, i: int) -> "ProgrammedLinear":
+        """Slice one layer out of a stacked artifact (views, no copies)."""
+        assert self.stacked, "layer() only applies to stacked artifacts"
+        return self.map_arrays(lambda a: a[i])
+
+
+def artifacts_equal(a: ProgrammedLinear, b: ProgrammedLinear) -> bool:
+    """Bit-exact artifact equality: every array field (None-ness included),
+    the static datapath data (spec / adc_cfg / fast) and the lifecycle state
+    (device / t_service_s / plan).  Reports are not part of chip equality."""
+    for f in ARTIFACT_ARRAY_FIELDS:
+        va, vb = getattr(a, f), getattr(b, f)
+        if (va is None) != (vb is None):
+            return False
+        if va is not None and not (
+            va.shape == vb.shape and va.dtype == vb.dtype and torch.equal(va, vb.to(va.device))
+        ):
+            return False
+    return (
+        a.spec == b.spec
+        and a.adc_cfg == b.adc_cfg
+        and a.fast == b.fast
+        and a.device == b.device
+        and a.t_service_s == b.t_service_s
+        and a.plan == b.plan
+    )
+
+
+def program_layer(
+    w: torch.Tensor,
+    spec: CrossbarSpec = DEFAULT_SPEC,
+    device_cfg: Optional[dm.DeviceConfig] = None,
+    adc_cfg: Optional[ADCConfig] = SAFE_ADAPTIVE,
+    *,
+    x_scale: Optional[float] = None,
+    w_scale: Optional[float] = None,
+    fast: bool = True,
+    with_report: bool = False,
+    chips: Optional[Tuple[int, ...]] = None,
+    plan: Optional[Any] = None,
+) -> ProgrammedLinear:
+    """Compile one (K, N) — or stacked (L, K, N) / (L, E, K, N) — weight on
+    the device ``w`` lies on.
+
+    Runs every weight-only stage exactly once: the ``max |w|`` scale
+    reduction, weight quantization, the device fault draw + write-verify +
+    read path, and the correction column sums; deterministic in
+    (w, spec, device_cfg).  Stacked leaves are compiled slab by slab so the
+    programming temporaries of one slab are freed before the next.
+    ``with_report`` / ``chips`` / ``plan`` and spare-column budgets belong to
+    parts of the system that are not ported yet and raise.
+    """
+    if with_report or chips is not None or plan is not None:
+        raise NotImplementedError(
+            "program_layer(with_report= / chips= / plan=) is not ported yet"
+        )
+    if device_cfg is not None and dm.wants_repair(device_cfg):
+        raise NotImplementedError("spare-column repair (spare_cols > 0) is not ported yet")
+    w = w.to(torch.float32)
+    if w.ndim >= 3:
+        parts = [
+            program_layer(w[i], spec, device_cfg, adc_cfg, x_scale=x_scale, w_scale=w_scale, fast=fast)
+            for i in range(w.shape[0])
+        ]
+        stacked = {
+            f: torch.stack([getattr(p, f) for p in parts])
+            for f in ARTIFACT_ARRAY_FIELDS
+            if getattr(parts[0], f) is not None
+        }
+        return dataclasses.replace(parts[0], **stacked)
+    spec = layer_scaled_spec(spec, w.shape[0])
+    if w_scale is None:
+        w_scale_t = torch.clamp(torch.max(torch.abs(w)), min=1e-9) / (
+            (1 << (spec.weight_bits - 1)) - 1
+        )
+    else:
+        w_scale_t = torch.tensor(w_scale, dtype=torch.float32, device=w.device)
+    wq = quantize_weight(w, spec, w_scale_t)
+    g_eff = None
+    if device_cfg is not None and not device_cfg.is_ideal:
+        g_eff = dm.effective_cell_codes(wq + spec.weight_bias, spec, device_cfg)
+    return ProgrammedLinear(
+        w_codes=wq, g_eff=g_eff, w_colsum=torch.sum(w, dim=0), w_scale=w_scale_t,
+        x_scale=(
+            torch.tensor(x_scale, dtype=torch.float32, device=w.device)
+            if x_scale is not None else None
+        ),
+        spec=spec, adc_cfg=adc_cfg, fast=fast, device=device_cfg, t_service_s=0.0,
+    )
+
+
+def programmed_matmul(
+    x: torch.Tensor, art: ProgrammedLinear, skip_zero_planes: bool = True
+) -> torch.Tensor:
+    """Steady-state float crossbar matmul against a programmed artifact:
+    input quantization -> kernel -> dequantize.  ``x`` must be non-negative
+    (see ``programmed_linear`` for the offset-encoded form).
+
+    The dynamic input scale is ``max(x)`` over the *whole* tensor, as in the
+    reference: every row's codes depend on every other row of the call.
+    On CUDA tensors the hand-written kernels serve; on CPU tensors their
+    plain versions do.
+    """
+    if art.stacked:
+        raise ValueError(
+            "stacked artifact: slice one layer first (art.layer(i), or let "
+            "models.model._run_stage walk it)"
+        )
+    spec = art.spec
+    if art.x_scale is not None:
+        x_scale = art.x_scale
+    else:
+        x_scale = torch.clamp(torch.max(x), min=1e-9) / ((1 << spec.input_bits) - 1)
+    xq = quantize_input(x, spec, x_scale)
+    if art.g_eff is not None:
+        # noisy chips always serve through the device kernel
+        yq = noisy_vmm_cuda(
+            xq, art.g_eff, spec, adc_cfg=art.adc_cfg, skip_zero_planes=skip_zero_planes
+        )
+    else:
+        datapath = art.plan.get("datapath", "direct") if art.plan is not None else "direct"
+        if datapath != "direct":
+            raise NotImplementedError(
+                f"planned datapath {datapath!r} (Karatsuba / Strassen) is not ported yet"
+            )
+        yq = crossbar_vmm_cuda(
+            xq, art.w_codes, spec, adc_cfg=(None if art.fast else art.adc_cfg),
+            fast=art.fast, skip_zero_planes=skip_zero_planes,
+        )
+    # dequantize in the reference's association order, all in float32
+    scale = x_scale * art.w_scale
+    y = yq.to(torch.float32) * (scale * (2.0 ** spec.drop_lsb))
+    if art.comp_scale is not None:
+        y = y * art.comp_scale
+    return y
+
+
+def programmed_linear(
+    x: torch.Tensor, art: ProgrammedLinear, colsum: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Signed-activation ``x @ w`` against a programmed artifact: shift the
+    activations non-negative (``min(x)`` over the whole tensor, subtracted in
+    ``x.dtype`` before the cast to float32), run the unsigned datapath,
+    correct digitally with the precomputed weight column sums (``colsum``
+    overrides ``art.w_colsum``).  Returns float32."""
+    shift = torch.min(x)
+    xs = (x - shift).to(torch.float32)
+    y = programmed_matmul(xs, art)
+    cs = art.w_colsum if colsum is None else colsum
+    return y + shift.to(torch.float32) * cs
+
+
+# ---------------------------------------------------------------------------
+# Name-keyed artifact binding
+# ---------------------------------------------------------------------------
+
+_SCOPE = threading.local()  # .stack: list[str] — the active module path
+
+
+@contextlib.contextmanager
+def name_scope(name: str):
+    """Push one path component onto the ambient parameter-name scope."""
+    stack = getattr(_SCOPE, "stack", None)
+    if stack is None:
+        stack = _SCOPE.stack = []
+    stack.append(str(name))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def scoped_name(name: str) -> str:
+    """Join ``name`` onto the active scope: the canonical artifact key."""
+    return "/".join(getattr(_SCOPE, "stack", []) + [str(name)])
+
+
+def _walk(tree: Any, prefix: Tuple[str, ...] = ()):
+    """(path, leaf) pairs of a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], prefix + (str(k),))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def artifact_names(artifacts: Any, prefix: str = "") -> Dict[str, ProgrammedLinear]:
+    """Flatten an artifact (sub)tree into {joined path: artifact}."""
+    out: Dict[str, ProgrammedLinear] = {}
+    for path, art in _walk(artifacts):
+        if isinstance(art, ProgrammedLinear):
+            out["/".join(p for p in (prefix, "/".join(path)) if p)] = art
+    return out
+
+
+_CONSUMED = threading.local()  # .names: dict[str, None] (insertion-ordered set)
+
+
+def record_artifact_consumed(name: str) -> None:
+    names = getattr(_CONSUMED, "names", None)
+    if names is None:
+        names = _CONSUMED.names = {}
+    names[name] = None
+
+
+def consumed_artifact_names() -> Tuple[str, ...]:
+    """Canonical names served from artifacts since the last reset."""
+    return tuple(getattr(_CONSUMED, "names", {}))
+
+
+def reset_consumed_artifact_names() -> None:
+    _CONSUMED.names = {}
+
+
+_BIND = threading.local()  # .maps: list of {name -> ProgrammedLinear}
+
+
+@contextlib.contextmanager
+def _push_bind_map(m: Dict[str, ProgrammedLinear]):
+    stack = getattr(_BIND, "maps", None)
+    if stack is None:
+        stack = _BIND.maps = []
+    stack.append(m)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+@contextlib.contextmanager
+def bind_artifacts(artifacts: Any):
+    """Bind a (sub)tree of artifacts by name for the dynamic scope; keys are
+    the subtree's own paths joined under the current ``name_scope``.  Later
+    binds shadow earlier ones."""
+    if artifacts is None:
+        yield
+        return
+    m = artifact_names(artifacts, prefix="/".join(getattr(_SCOPE, "stack", [])))
+    with _push_bind_map(m):
+        yield
+
+
+def active_artifact_for(
+    name: str, shape: Optional[Tuple[int, ...]] = None
+) -> Optional[ProgrammedLinear]:
+    """Artifact bound to this canonical name in the dynamic scope, if any.
+    The shape guard rejects a still-stacked artifact when a 2-D weight asks,
+    and keeps apart two tensors that share a name (the embedding table vs its
+    transposed LM-head artifact)."""
+    for m in reversed(getattr(_BIND, "maps", [])):
+        art = m.get(name)
+        if art is not None and (shape is None or art.shape == tuple(shape)):
+            return art
+    return None
+
+
+# Projection leaves routed through models.layers.crossbar_linear.
+_CROSSBAR_CONSUMERS = (
+    "wq", "wk", "wv", "wo", "w_kv_down", "wi", "head",
+    "wg", "router", "shared_wi", "shared_wg", "shared_wo",
+)
+
+
+def _matmul_leaf(path: Tuple[str, ...], leaf: Any) -> bool:
+    """Default predicate: which param leaves go onto crossbars (an allowlist
+    of projection names, as 2-D, layer-stacked 3-D or 4-D expert banks)."""
+    if not isinstance(leaf, torch.Tensor) or leaf.ndim not in (2, 3, 4):
+        return False
+    if not leaf.is_floating_point():
+        return False
+    return bool(path) and path[-1] in _CROSSBAR_CONSUMERS
+
+
+class ProgrammedModel:
+    """A nested dict of ProgrammedLinear artifacts mirroring a params dict;
+    ``by_name`` is the canonical path-keyed table every lookup resolves
+    through.  Nothing references parameter objects: a ProgrammedModel built
+    once serves any congruent params tree."""
+
+    def __init__(self, artifacts: Any):
+        self.artifacts = artifacts
+        self.by_name: Dict[str, ProgrammedLinear] = artifact_names(artifacts)
+        self._layer_maps: Dict[str, Optional[List[Dict[str, ProgrammedLinear]]]] = {}
+
+    def bind(self):
+        """Bind every artifact by name for the dynamic scope."""
+        return _push_bind_map(self.by_name)
+
+    def subtree(self, key: str) -> Any:
+        """Artifact subtree for one top-level params key (e.g. "stage0")."""
+        try:
+            return self.artifacts[key]
+        except (KeyError, TypeError, IndexError):
+            return None
+
+    def stage_layer_maps(self, key: str) -> Optional[List[Dict[str, ProgrammedLinear]]]:
+        """Per-layer bind maps of a layer-stacked stage: entry ``r`` maps the
+        canonical names under ``key`` to layer ``r``'s artifact views.  Built
+        once and kept, so a forward binds a dict instead of re-slicing every
+        artifact at every step.  Non-stacked artifacts under the stage are
+        left out (they cannot be sliced per layer)."""
+        if key not in self._layer_maps:
+            sub = {
+                n: a for n, a in artifact_names(self.subtree(key), prefix=key).items() if a.stacked
+            }
+            maps = None
+            if sub:
+                depth = {a.shape[0] for a in sub.values()}
+                if len(depth) != 1:
+                    raise ValueError(f"artifacts under {key!r} disagree on the layer count: {depth}")
+                maps = [{n: a.layer(r) for n, a in sub.items()} for r in range(depth.pop())]
+            self._layer_maps[key] = maps
+        return self._layer_maps[key]
+
+    def lookup(
+        self, name: str, shape: Optional[Tuple[int, ...]] = None
+    ) -> Optional[ProgrammedLinear]:
+        """Artifact for a canonical name, optionally shape-checked."""
+        art = self.by_name.get(name)
+        if art is not None and (shape is None or art.shape == tuple(shape)):
+            return art
+        return None
+
+    @property
+    def n_compiled(self) -> int:
+        return len(self.by_name)
+
+    @property
+    def emitted_names(self) -> frozenset:
+        return frozenset(self.by_name)
+
+    def verify_consumed(self, consumed: Optional[Any] = None) -> None:
+        """Assert a forward consumed exactly the emitted name set; raises
+        ``LookupError`` on any emitted artifact no call site served (a
+        renamed layer produces an orphaned artifact and zero misses)."""
+        got = frozenset(consumed_artifact_names() if consumed is None else consumed)
+        unconsumed = self.emitted_names - got
+        unexpected = got - self.emitted_names
+        if unconsumed:
+            raise LookupError(
+                "programmed-artifact name-set drift: "
+                f"{len(unconsumed)}/{len(self.by_name)} emitted artifacts were "
+                f"never consumed by the forward ({', '.join(sorted(unconsumed)[:5])}"
+                + (", ..." if len(unconsumed) > 5 else "")
+                + ")"
+                + (
+                    f"; consumed-but-not-emitted: {', '.join(sorted(unexpected)[:5])}"
+                    if unexpected
+                    else ""
+                )
+                + " — a layer was renamed, or program_model compiled a leaf "
+                "no call site serves."
+            )
+
+
+def _program_action(path, leaf, pred, tie_lm_head: bool) -> Optional[str]:
+    """"program" the leaf, "transpose" it first (tied-head ``tokens``
+    embeddings), or None when it stays digital."""
+    if (
+        tie_lm_head
+        and path
+        and path[-1] == "tokens"
+        and isinstance(leaf, torch.Tensor)
+        and leaf.ndim == 2
+        and leaf.is_floating_point()
+    ):
+        return "transpose"
+    if pred(path, leaf):
+        return "program"
+    return None
+
+
+def program_model(
+    params: Any,
+    spec: CrossbarSpec = DEFAULT_SPEC,
+    device_cfg: Optional[dm.DeviceConfig] = None,
+    adc_cfg: Optional[ADCConfig] = SAFE_ADAPTIVE,
+    *,
+    fast: bool = True,
+    tie_lm_head: bool = False,
+    leaf_filter: Optional[Callable[[Tuple[str, ...], Any], bool]] = None,
+    device="cuda",
+) -> ProgrammedModel:
+    """Walk a nested params dict and compile every matmul-shaped leaf on
+    ``device`` (each leaf is moved there for programming; the artifacts stay
+    there).  ``tie_lm_head=True`` additionally compiles the transpose of every
+    2-D ``tokens`` embedding under the embedding's own name — the (D, V)
+    artifact shares the key with the (V, D) leaf and shape-checked lookup keeps
+    the two apart."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("program_model(device='cuda') needs a CUDA device; pass device='cpu'")
+    pred = leaf_filter if leaf_filter is not None else _matmul_leaf
+    artifacts: Dict[str, Any] = {}
+    for path, leaf in _walk(params):
+        action = _program_action(path, leaf, pred, tie_lm_head)
+        if action is None:
+            continue
+        w = leaf.to(device)
+        art = program_layer(
+            w.T.contiguous() if action == "transpose" else w, spec, device_cfg, adc_cfg, fast=fast
+        )
+        node = artifacts
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = art
+    return ProgrammedModel(artifacts)
+
+
+def expected_artifact_names(
+    params: Any,
+    *,
+    tie_lm_head: bool = False,
+    leaf_filter: Optional[Callable[[Tuple[str, ...], Any], bool]] = None,
+) -> Dict[str, Tuple[int, ...]]:
+    """{canonical name: servable shape} ``program_model`` would compile —
+    without programming anything."""
+    pred = leaf_filter if leaf_filter is not None else _matmul_leaf
+    out: Dict[str, Tuple[int, ...]] = {}
+    for path, leaf in _walk(params):
+        action = _program_action(path, leaf, pred, tie_lm_head)
+        if action is not None:
+            shape = tuple(leaf.shape)
+            out["/".join(path)] = tuple(reversed(shape)) if action == "transpose" else shape
+    return out

@@ -1,0 +1,225 @@
+"""Model assembly: embed -> stages (loop over stacked layers) -> norm ->
+logits (counterpart of ``repro.models.model`` for attention stages).
+
+Entry points:
+  * ``init_model(cfg, seed, device, dtype)`` -> params (nested dicts)
+  * ``forward(params, cfg, tokens)`` -> logits (B, S, V)
+  * ``init_cache(cfg, B, S, dtype, device)`` -> cache
+  * ``prefill(params, cfg, tokens, cache)`` -> (last_logits, cache)
+  * ``decode_step(params, cfg, tok, pos, cache)`` -> (logits, cache)
+
+Layers are stacked per stage on a leading axis (the names are the artifact
+keys); a stage runs as a Python loop over that axis.  Caches are updated in
+place and returned.  Nothing here needs gradients: the entry points run under
+``torch.no_grad``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, StageSpec
+from repro_torch.device.programmed import _push_bind_map, name_scope
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import current_crossbar, embed, lm_head, mlp, rms_norm
+
+
+def require_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} needs a CUDA device; pass device='cpu'")
+    return device
+
+
+def _stage_layer_maps(si: int):
+    """Per-layer artifact bind maps of stage ``si`` (None unless serving from
+    a programmed chip)."""
+    mode = current_crossbar()
+    if not mode.enabled or mode.programmed is None:
+        return None
+    return mode.programmed.stage_layer_maps(f"stage{si}")
+
+
+def _require_attn(kind: str) -> None:
+    if not kind.startswith("attn"):
+        raise NotImplementedError(f"stage kind {kind!r} is not ported yet (attention stages only)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _normal(gen, shape, scale: float, dtype, device) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def _init_block(cfg: ModelConfig, kind: str, repeats: int, gen, dtype, device) -> Dict[str, Any]:
+    """One block position of a stage, its ``repeats`` layers stacked on a
+    leading axis.  Matrices draw normal(0, fan_in**-0.5); norm scales are
+    zero (``rms_norm`` multiplies by ``1 + scale``)."""
+    _require_attn(kind)
+    if cfg.moe_experts or cfg.post_norm:
+        raise NotImplementedError("MoE and post-norm blocks are not ported yet")
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    L = repeats
+
+    def mat(k: int, n: int) -> torch.Tensor:
+        return _normal(gen, (L, k, n), k**-0.5, dtype, device)
+
+    block: Dict[str, Any] = {
+        "norm1": torch.zeros((L, d), dtype=dtype, device=device),
+        "mixer": {"wq": mat(d, h * dh), "wk": mat(d, kv * dh), "wv": mat(d, kv * dh), "wo": mat(h * dh, d)},
+    }
+    if cfg.d_ff:
+        wide = 2 * cfg.d_ff if cfg.mlp_kind in ("swiglu", "geglu") else cfg.d_ff
+        block["norm2"] = torch.zeros((L, d), dtype=dtype, device=device)
+        block["ffn"] = {"wi": mat(d, wide), "wo": mat(cfg.d_ff, d)}
+    return block
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None) -> Dict[str, Any]:
+    """Random parameters from ``seed`` (own generator on ``device``), in
+    ``cfg.param_dtype`` unless ``dtype`` is given.  Same tree, names and init
+    scales as the reference; the draws themselves differ."""
+    device = require_device(device)
+    dtype = dtype or getattr(torch, cfg.param_dtype)
+    if cfg.frontend != "token":
+        raise NotImplementedError("embedding front ends are not ported yet")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": {"tokens": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype, device)}
+    }
+    for si, spec in enumerate(cfg.stages):
+        params[f"stage{si}"] = {
+            f"b{i}": _init_block(cfg, kind, spec.repeats, gen, dtype, device)
+            for i, kind in enumerate(spec.kinds)
+        }
+    params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    if not cfg.tie_embeddings:
+        params["head"] = _normal(
+            gen, (cfg.d_model, cfg.vocab_size), cfg.d_model**-0.5, dtype, device
+        )
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, device="cuda"):
+    """Cache: list per stage of {b<i>: {k, v} stacked (repeats, B, S, KV, dh)}."""
+    device = require_device(device)
+    stages = []
+    for spec in cfg.stages:
+        entry = {}
+        for i, kind in enumerate(spec.kinds):
+            _require_attn(kind)
+            one = attn_mod.init_attention_cache(cfg, batch, seq, dtype, device)
+            entry[f"b{i}"] = {
+                n: torch.zeros((spec.repeats,) + a.shape, dtype=dtype, device=device)
+                for n, a in one.items()
+            }
+        stages.append(entry)
+    return stages
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _layer(tree: Any, r: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _layer(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _apply_block(params, x, cfg: ModelConfig, kind: str, positions, cache_entry=None, decode_pos=None):
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    with name_scope("mixer"):
+        h, new_entry = attn_mod.attention_block(
+            params["mixer"], h, cfg, kind, positions, cache_entry, decode_pos
+        )
+    x = x + h
+    if "norm2" in params:
+        h = rms_norm(x, params["norm2"], cfg.norm_eps)
+        with name_scope("ffn"):
+            h = mlp(params["ffn"], h, cfg.mlp_kind)
+        x = x + h
+    return x, new_entry
+
+
+def _run_stage(
+    params_stage,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    spec: StageSpec,
+    positions: torch.Tensor,
+    cache_stage=None,
+    decode_pos: Optional[torch.Tensor] = None,
+    layer_maps: Optional[List[Dict[str, Any]]] = None,
+):
+    """Walk the stacked layer axis.  Must run under ``name_scope("stage{i}")``;
+    layer ``r``'s artifact views (``layer_maps[r]``, sliced once when the chip
+    was bound) are pushed for its blocks.  ``cache_stage`` is written in place
+    through per-layer views."""
+    for kind in spec.kinds:
+        _require_attn(kind)
+    for r in range(spec.repeats):
+        lp = _layer(params_stage, r)
+        cl = _layer(cache_stage, r) if cache_stage is not None else None
+        with _push_bind_map(layer_maps[r] if layer_maps is not None else {}):
+            for i, kind in enumerate(spec.kinds):
+                entry = cl[f"b{i}"] if cl is not None else None
+                with name_scope(f"b{i}"):
+                    x, _ = _apply_block(lp[f"b{i}"], x, cfg, kind, positions, entry, decode_pos)
+    return x, cache_stage
+
+
+def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings and cfg.frontend == "token":
+        # the tied head serves from the transposed artifact that
+        # program_model(tie_lm_head=True) binds under the embedding's name
+        return lm_head(
+            params["embed"]["tokens"], x, tied=True, cap=cfg.logit_softcap, name="embed/tokens"
+        )
+    return lm_head(params["head"], x, tied=False, cap=cfg.logit_softcap, name="head")
+
+
+def _stages(params, cfg: ModelConfig, x, positions, cache=None, decode_pos=None):
+    for si, spec in enumerate(cfg.stages):
+        with name_scope(f"stage{si}"):
+            x, _ = _run_stage(
+                params[f"stage{si}"], x, cfg, spec, positions,
+                cache_stage=(cache[si] if cache is not None else None),
+                decode_pos=decode_pos, layer_maps=_stage_layer_maps(si),
+            )
+    return x
+
+
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, inp: torch.Tensor, positions=None) -> torch.Tensor:
+    """Full-sequence forward. Returns logits (B, S, V)."""
+    x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _logits(params, cfg, _stages(params, cfg, x, positions))
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, inp: torch.Tensor, cache):
+    """Process the prompt, fill the cache; returns (last_logits, cache)."""
+    x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _stages(params, cfg, x, positions, cache=cache)
+    return _logits(params, cfg, x[:, -1:])[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, inp: torch.Tensor, pos: torch.Tensor, cache):
+    """One decode step at position ``pos`` — 0-d, or (B,) per-slot positions
+    for continuous batching.  Returns (logits, cache)."""
+    x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)  # (B, 1)
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
+    x = _stages(params, cfg, x, positions, cache=cache, decode_pos=pos)
+    return _logits(params, cfg, x)[:, 0], cache

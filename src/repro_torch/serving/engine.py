@@ -1,0 +1,385 @@
+"""Batched serving, split into a model runner and a slot scheduler
+(counterpart of ``repro.serving.engine``; mesh serving, chip plans, repair
+budgets and the chip lifecycle — age / health_check / compensate / hot_swap /
+refresh — are not ported and their arguments are not accepted).
+
+``ModelRunner`` owns the model half: the params, the programmed crossbar chip
+(program-once at construction, or restored from an artifact store), prefill /
+decode and sampling.  ``ServingEngine`` is the synchronous slot scheduler on
+top: a fixed pool of ``max_batch`` cache slots; a pending request is
+prefilled alone (prompt zero-padded to a bucket) and its cache copied into a
+free slot; one ``decode_step`` advances *all* slots each tick with per-slot
+positions; finished slots are freed and refilled.
+
+Generation is deterministic given (seed, admission order).  The decode tick
+returns host float32 logits — one device synchronisation per tick.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import itertools
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import restore_programmed, save_programmed
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import programmed as prog_mod
+from repro_torch.models import layers as layers_mod
+from repro_torch.models import model as model_lib
+from repro_torch.models.layers import CrossbarMode, crossbar_mode
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (S,) int32 tokens
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    # allow truncating a prompt longer than max_seq to its first max_seq
+    # tokens; without it an over-length prompt is refused at submit()
+    truncate: bool = False
+    on_token: Optional[Callable[["Request", int], None]] = None
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return -(-n // 2048) * 2048
+
+
+class ModelRunner:
+    """The model half of serving: chip + prefill/decode + sampling.  Knows
+    nothing about which requests run when."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        max_seq: int = 512,
+        temperature: float = 0.0,
+        seed: int = 0,
+        crossbar: Optional[CrossbarMode] = None,
+        restore_artifacts: Optional[str] = None,
+        verify_coverage: bool = True,
+        device="cuda",
+    ):
+        self.device = model_lib.require_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self._sample_gen = torch.Generator(device="cpu")
+        self._sample_gen.manual_seed(seed)
+        self.crossbar = self._program_crossbars(crossbar, restore_artifacts)
+        if verify_coverage:
+            self.verify_crossbar_coverage()
+
+    # ------------------------------------------------------------------
+    @property
+    def _tie_lm_head(self) -> bool:
+        return self.cfg.tie_embeddings and self.cfg.frontend == "token"
+
+    def _program_crossbars(
+        self, crossbar: Optional[CrossbarMode], restore_artifacts: Optional[str] = None
+    ):
+        """Program-once compilation of the model's weights (deploy time), or
+        restore of a previously saved chip: the name-keyed store is loaded
+        bit-for-bit and no ``program_layer`` call runs."""
+        if restore_artifacts is not None:
+            if crossbar is None or not crossbar.enabled:
+                raise ValueError(
+                    "restore_artifacts= needs crossbar serving enabled "
+                    "(pass crossbar=CrossbarMode(enabled=True, ...))"
+                )
+            if crossbar.programmed is not None:
+                raise ValueError(
+                    "restore_artifacts= with prebuilt CrossbarMode.programmed "
+                    "artifacts: pick one source of truth"
+                )
+            expected = prog_mod.expected_artifact_names(
+                self.params, tie_lm_head=self._tie_lm_head
+            )
+            prog = restore_programmed(restore_artifacts, device=self.device)
+            # a stale or mismatched store would resolve no artifacts and
+            # degrade every projection to per-call reprogramming: cross-check
+            # the store against what this model would program
+            bad = sorted(
+                name for name, shape in expected.items()
+                if prog.lookup(name, shape) is None
+            )
+            if bad:
+                raise ValueError(
+                    f"restored artifact store at {restore_artifacts!r} does not "
+                    f"match this model: {len(bad)}/{len(expected)} projections "
+                    f"missing or shape-mismatched ({', '.join(bad[:5])}"
+                    + (", ..." if len(bad) > 5 else "")
+                    + ") — was it saved from a different model/config?"
+                )
+            return dataclasses.replace(crossbar, programmed=prog)
+        if crossbar is None or not crossbar.enabled or crossbar.programmed is not None:
+            return crossbar
+        prog = prog_mod.program_model(
+            self.params,
+            device_cfg=crossbar.device,
+            fast=crossbar.fast,
+            tie_lm_head=self._tie_lm_head,
+            device=self.device,
+        )
+        return dataclasses.replace(crossbar, programmed=prog)
+
+    def verify_crossbar_coverage(self) -> None:
+        """Structural name-set check at construction: one real 4-token
+        forward under the runner's crossbar mode must consume exactly the
+        programmed model's emitted name set — a renamed layer or an artifact
+        no call site serves fails construction, before the first request.
+        The ambient miss and consumption records are put back afterwards."""
+        if self.crossbar is None or self.crossbar.programmed is None:
+            return
+        inp = torch.zeros((1, 4), dtype=torch.long, device=self.device)
+        before_consumed = prog_mod.consumed_artifact_names()
+        before_misses = layers_mod.crossbar_miss_counts()
+        prog_mod.reset_consumed_artifact_names()
+        try:
+            self._with_crossbar(lambda: model_lib.forward(self.params, self.cfg, inp))
+            self.crossbar.programmed.verify_consumed()
+        finally:
+            prog_mod.reset_consumed_artifact_names()
+            for n in before_consumed:
+                prog_mod.record_artifact_consumed(n)
+            layers_mod.restore_crossbar_misses(before_misses)
+
+    def save_artifacts(self, directory: str, slot: Optional[str] = None) -> str:
+        """Persist the programmed chip so a restart can restore instead of
+        reprogram (``ServingEngine(..., restore_artifacts=directory)``)."""
+        if self.crossbar is None or self.crossbar.programmed is None:
+            raise ValueError(
+                "no programmed artifacts to save: construct the engine with "
+                "crossbar=CrossbarMode(enabled=True, ...) first"
+            )
+        return save_programmed(directory, self.crossbar.programmed, slot=slot)
+
+    @property
+    def programmed(self):
+        """The bound ``ProgrammedModel`` (None when not crossbar-serving)."""
+        return self.crossbar.programmed if self.crossbar is not None else None
+
+    def _with_crossbar(self, fn):
+        """Run ``fn`` under the runner's crossbar mode with the programmed
+        model's name-keyed artifact table bound."""
+        with contextlib.ExitStack() as stack:
+            if self.crossbar is not None:
+                stack.enter_context(crossbar_mode(self.crossbar))
+                if self.crossbar.programmed is not None:
+                    stack.enter_context(self.crossbar.programmed.bind())
+            return fn()
+
+    # ------------------------------------------------------------------
+    # Scheduler-facing surface: cache init, prefill-admit, decode, sample
+    # ------------------------------------------------------------------
+
+    def init_cache(self, batch: int, dtype=torch.float32):
+        """A dense slot-pool cache sized to this runner's ``max_seq``."""
+        return model_lib.init_cache(self.cfg, batch, self.max_seq, dtype=dtype, device=self.device)
+
+    def check_prompt(self, prompt, truncate: bool) -> int:
+        """Validate a prompt against ``max_seq``; returns the effective
+        (possibly truncated) prefill length."""
+        S = len(prompt)
+        if S > self.max_seq:
+            if not truncate:
+                raise ValueError(
+                    f"prompt of length {S} exceeds max_seq={self.max_seq}: "
+                    "it cannot be prefilled into the slot pool — raise "
+                    "max_seq, shorten the prompt, or pass truncate=True to "
+                    "serve the first max_seq tokens"
+                )
+            return self.max_seq
+        return S
+
+    def admit_slot(self, cache, slot: int, req: Request):
+        """Prefill one request and copy its cache into slot ``slot`` (in
+        place).  Returns ``(cache, pos, last_tok, first_tok)``; attention
+        models re-issue the last prompt token on the first decode tick, so
+        ``first_tok`` is None."""
+        S = self.check_prompt(req.prompt, req.truncate)
+        # attention caches tolerate padding (masked by position): prefill a
+        # zero-padded bucket, then an idempotent re-issue of token S-1
+        bucket = min(_bucket(S), self.max_seq)
+        prompt = np.zeros((1, bucket), np.int64)
+        prompt[0, :S] = np.asarray(req.prompt)[:S]
+        small_cache = self.init_cache(1)
+        tokens = torch.from_numpy(prompt).to(self.device)
+        _, filled = self._with_crossbar(
+            lambda: model_lib.prefill(self.params, self.cfg, tokens, small_cache)
+        )
+        for big_stage, one_stage in zip(cache, filled):
+            for b, entry in one_stage.items():
+                for n, one in entry.items():
+                    big_stage[b][n][:, slot] = one[:, 0]
+        return cache, S - 1, int(np.asarray(req.prompt)[S - 1]), None
+
+    def decode(self, last_tok: np.ndarray, pos: np.ndarray, cache):
+        """One decode tick over the whole slot pool; returns
+        ``(logits, cache)`` with logits as host float32."""
+        toks = torch.from_numpy(np.asarray(last_tok, np.int64)[:, None]).to(self.device)
+        pos_t = torch.from_numpy(np.asarray(pos, np.int64)).to(self.device)
+        logits, cache = self._with_crossbar(
+            lambda: model_lib.decode_step(self.params, self.cfg, toks, pos_t, cache)
+        )
+        return logits.to(torch.float32).cpu().numpy(), cache
+
+    def sample(self, logits: np.ndarray) -> np.ndarray:
+        if self.temperature <= 0.0:
+            return np.argmax(logits, axis=-1).astype(np.int32)
+        u = torch.rand(logits.shape, generator=self._sample_gen, dtype=torch.float64)
+        g = -torch.log(-torch.log(u.clamp_min(1e-300))).numpy()
+        return np.argmax(logits / self.temperature + g, axis=-1).astype(np.int32)
+
+
+class ServingEngine:
+    """Slot scheduler over a ``ModelRunner``: a fixed slot pool and a FIFO
+    pending queue; ``step()`` admits and advances, ``run_until_done()``
+    drains."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        max_batch: int = 4,
+        max_seq: int = 512,
+        temperature: float = 0.0,
+        seed: int = 0,
+        crossbar: Optional[CrossbarMode] = None,
+        restore_artifacts: Optional[str] = None,
+        verify_coverage: bool = True,
+        rid_start: int = 0,
+        device="cuda",
+    ):
+        self.runner = ModelRunner(
+            cfg,
+            params,
+            max_seq=max_seq,
+            temperature=temperature,
+            seed=seed,
+            crossbar=crossbar,
+            restore_artifacts=restore_artifacts,
+            verify_coverage=verify_coverage,
+            device=device,
+        )
+        self.max_batch = max_batch
+        self.cache = self.runner.init_cache(max_batch)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.pos = np.zeros(max_batch, np.int32)  # position of next write
+        self.last_tok = np.zeros(max_batch, np.int32)
+        self.pending: List[Request] = []
+        # completion ledger: step() records every finished request the moment
+        # it frees the slot, so a request admitted and finished within one
+        # step() (max_new_tokens=1) cannot vanish from run_until_done()
+        self._completed: Dict[int, Request] = {}
+        self._rid = itertools.count(rid_start)
+
+    # -- delegation: the model half lives on the runner -----------------
+    @property
+    def cfg(self) -> ModelConfig:
+        return self.runner.cfg
+
+    @property
+    def params(self):
+        return self.runner.params
+
+    @property
+    def max_seq(self) -> int:
+        return self.runner.max_seq
+
+    @property
+    def crossbar(self) -> Optional[CrossbarMode]:
+        return self.runner.crossbar
+
+    @property
+    def programmed(self):
+        return self.runner.programmed
+
+    def verify_crossbar_coverage(self) -> None:
+        self.runner.verify_crossbar_coverage()
+
+    def save_artifacts(self, directory: str, slot: Optional[str] = None) -> str:
+        return self.runner.save_artifacts(directory, slot=slot)
+
+    # ------------------------------------------------------------------
+    def submit(
+        self,
+        prompt,
+        max_new_tokens: int = 16,
+        eos_id: Optional[int] = None,
+        truncate: bool = False,
+        on_token: Optional[Callable[[Request, int], None]] = None,
+    ) -> int:
+        prompt = np.asarray(prompt)
+        # refuse over-length prompts at submit time unless truncation was
+        # explicitly allowed
+        self.runner.check_prompt(prompt, truncate)
+        req = Request(
+            next(self._rid), prompt, max_new_tokens, eos_id,
+            truncate=truncate, on_token=on_token,
+        )
+        self.pending.append(req)
+        return req.rid
+
+    def _admit(self):
+        for slot in range(self.max_batch):
+            if self.slots[slot] is not None or not self.pending:
+                continue
+            req = self.pending.pop(0)
+            self.cache, p, lt, first = self.runner.admit_slot(self.cache, slot, req)
+            self.pos[slot] = p
+            self.last_tok[slot] = lt
+            if first is not None:
+                req.generated.append(first)
+                if req.on_token is not None:
+                    req.on_token(req, first)
+            self.slots[slot] = req
+
+    def step(self) -> int:
+        """Admit pending requests and advance every occupied slot one token.
+        Finished requests are recorded in the completion ledger as their
+        slots free.  Returns the number of active slots advanced."""
+        self._admit()
+        active = [i for i in range(self.max_batch) if self.slots[i] is not None]
+        if not active:
+            return 0
+        logits, self.cache = self.runner.decode(self.last_tok, self.pos, self.cache)
+        nxt = self.runner.sample(logits)
+        for i in active:
+            req = self.slots[i]
+            self.pos[i] += 1
+            tok = int(nxt[i])
+            req.generated.append(tok)
+            self.last_tok[i] = tok
+            if req.on_token is not None:
+                req.on_token(req, tok)
+            if (
+                len(req.generated) >= req.max_new_tokens
+                or (req.eos_id is not None and tok == req.eos_id)
+                or self.pos[i] >= self.max_seq - 1
+            ):
+                req.done = True
+                self._completed[req.rid] = req
+                self.slots[i] = None
+        return len(active)
+
+    def run_until_done(self, max_ticks: int = 10_000) -> List[Request]:
+        for _ in range(max_ticks):
+            if not self.pending and all(s is None for s in self.slots):
+                break
+            self.step()
+        out = dict(self._completed)
+        for s in self.slots:
+            if s is not None:
+                out[s.rid] = s
+        return sorted(out.values(), key=lambda r: r.rid)
