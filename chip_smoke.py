@@ -47,7 +47,7 @@ from repro_torch.kernels import crossbar_vmm as kvmm  # noqa: E402
 from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda, crossbar_vmm_plain  # noqa: E402
 from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda, noisy_vmm_plain  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
-from repro_torch.models.layers import CrossbarMode, crossbar_misses, reset_crossbar_misses  # noqa: E402
+from repro_torch.models.layers import CrossbarMode, crossbar_misses, crossbar_mode, reset_crossbar_misses  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s and int8 tensor ops/s.
@@ -100,7 +100,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, launches: int = 20, reps: int = 5) -> float:
+def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
     """Device milliseconds per call of ``fn``: ``launches`` calls captured
     into one CUDA graph and replayed, so no host time sits between them."""
     fn()
@@ -147,19 +147,31 @@ def active_planes(x, spec):
 
 def bound_ms(kind, x, N, spec):
     """Least time for the work: max(bytes / HBM rate, operations / int8
-    tensor rate).  Bytes: x, the weight operand and the output once each.
+    tensor rate).  Bytes: x, the weight operand and the output once each, at
+    the width the function needs, not the width the tensors are stored in —
+    ``input_bits`` per input code, ``out_bits`` per output code,
+    ``weight_bits`` per weight code and, for the noisy kernel, ``cell_bits +
+    8`` bits per cell (a conductance on the 1/256 grid in [0, cell_max]).
     Operations: fast — one 16x16-bit multiply-add per (m, k, n), counted as
     four 8x8-bit multiply-adds = 8 ops; plane kernels — one multiply-add
-    (2 ops) per row of every column conversion of every *active* plane."""
+    (2 ops) per row of every column conversion of every *active* plane.
+    Also returns the byte bound at the stored widths (int32 codes, float32
+    cells), the bytes the kernels move today."""
     M, K = x.shape
-    w_bytes = K * N * 4 * (spec.n_slices if kind == "noisy" else 1)
-    t_bytes = (M * K * 4 + w_bytes + M * N * 4) / HBM_BYTES_PER_S
+    if kind == "noisy":
+        w_bits, w_stored = spec.n_slices * (spec.cell_bits + 8), 4 * spec.n_slices
+    else:
+        w_bits, w_stored = spec.weight_bits, 4
+    needed = (M * K * spec.input_bits + K * N * w_bits + M * N * spec.out_bits) / 8
+    stored = M * K * 4 + K * N * w_stored + M * N * 4
+    t_bytes = needed / HBM_BYTES_PER_S
     if kind == "fast":
         ops = 8.0 * M * K * N
     else:
         ops = 2.0 * active_planes(x, spec) * spec.rows * spec.n_slices * N
     t_ops = ops / INT8_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    bound = 1e3 * max(t_bytes, t_ops)
+    return bound, ("bytes" if t_bytes >= t_ops else "operations"), 1e3 * stored / HBM_BYTES_PER_S
 
 
 def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed):
@@ -196,12 +208,10 @@ def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed
         # call_ms: one eager call of the wrapper, host time included (what
         # the main path pays); kernel_ms: device time alone (graph replay)
         case["call_ms"] = cuda_ms(kernel, reps=10)
-        launches_before = dict(kvmm.LAUNCHES)
         case["kernel_ms"] = graph_ms(kernel)
-        kvmm.LAUNCHES.update(launches_before)  # capture is not the main path
         # the plain version of a wide layer takes seconds: time it once then
         case["plain_ms"] = cuda_ms(plain, reps=(1 if plain_first_s > 1.0 else 3), warmup=0)
-        case["bound_ms"], case["bound_by"] = bound_ms(kind, x, N, spec)
+        case["bound_ms"], case["bound_by"], case["stored_bytes_ms"] = bound_ms(kind, x, N, spec)
         case["library_ms"] = None
         if kind == "fast":
             # yardstick only, never used by the port: one float64 matmul
@@ -230,9 +240,10 @@ def kernels_phase(dev, quick: bool):
     seed = 0
     for kind, tag, base, cfg in families:
         main = tag in ("ideal", "safe_adaptive_signed")
-        # main-path shapes, layer-scaled spec (drop_lsb >= 20)
+        # main-path shapes, layer-scaled spec (drop_lsb >= 20): M = 4 is a
+        # decode tick, 32 and 64 are the prefill buckets
         for K, N in (MAIN_SHAPES[:2] if quick else MAIN_SHAPES):
-            for M in ((4,) if quick or not main else (4, 64)):
+            for M in ((4,) if quick else (4, 32, 64) if main else (4, 32)):
                 seed += 1
                 cases.append(run_case(
                     kind, f"{tag}/main", M, K, N, layer_scaled_spec(base, K), cfg,
@@ -277,6 +288,7 @@ def kernel_summary(cases, launches):
             shape=[head["M"], head["K"], head["N"]],
             ms=head["kernel_ms"], kernel_ms=head["kernel_ms"], call_ms=head["call_ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            stored_bytes_ms=head["stored_bytes_ms"],
             library_ms=head["library_ms"], tolerance="bit-identical (torch.equal)",
             equal=all(c["equal"] for c in mine), cases=mine,
         ))
@@ -407,7 +419,8 @@ def reference_check(cfg, params, eng, dev):
     on one short prompt: the chip computes x @ w to W16A16 accuracy."""
     tok = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, size=(1, 16))).to(dev)
     digital = model_lib.forward(params, cfg, tok).float()
-    xbar = eng.runner._with_crossbar(lambda: model_lib.forward(params, cfg, tok)).float()
+    with crossbar_mode(eng.crossbar), eng.programmed.bind():
+        xbar = model_lib.forward(params, cfg, tok).float()
     require(
         xbar.shape == (1, 16, cfg.vocab_size) and bool(torch.isfinite(xbar).all()),
         f"full-width logits have shape {tuple(xbar.shape)} or are not finite",
@@ -421,21 +434,17 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def small_cpu_vs_card(dev):
-    """Reduced smollm, float32: one chip programmed on the CPU, served there
-    by the plain versions and — carried over through the artifact store — on
-    the card by the kernels.  Every projection is held bit-equal on the same
-    float input; whole-model logits are compared on the ideal chip only (on a
-    noisy chip every column conversion rounds, so the last bit of a float
-    reduction that differs between CPU and card moves the logits as much as
-    the chip's own noise does)."""
+def cpu_vs_card_projections(dev):
+    """Reduced smollm, float32: one chip programmed on the CPU is carried over
+    to the card through the artifact store, and every projection is held
+    bit-equal on the same float input — the plain versions on the CPU against
+    the kernels on the card."""
     from repro_torch.device.programmed import programmed_linear
 
     cfg = reduced(get_config("smollm-360m"))
     p_cpu = model_lib.init_model(cfg, seed=3, device="cpu")
     p_dev = _to(p_cpu, dev)
     rng = np.random.default_rng(5)
-    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 12)))
     out = {}
     for name, dcfg in (("ideal", None), ("noisy", NOISY_DEVICE)):
         mode = CrossbarMode(enabled=True, strict=True, device=dcfg)
@@ -456,13 +465,7 @@ def small_cpu_vs_card(dev):
                 y_d = programmed_linear(x.to(dev), ad).cpu()
                 require(torch.equal(y_c, y_d), f"{name} chip, {key}[{i}]: card != CPU")
                 n_proj += 1
-        a = eng_cpu.runner._with_crossbar(lambda: model_lib.forward(p_cpu, cfg, tok)).float()
-        b = eng_dev.runner._with_crossbar(lambda: model_lib.forward(p_dev, cfg, tok.to(dev))).float().cpu()
-        rel = float((a - b).norm() / a.norm())
-        require(bool(torch.isfinite(b).all()), f"{name} chip: logits on the card are not finite")
-        if dcfg is None:
-            require(rel < 1e-2, f"card and CPU disagree on the reduced model: rel {rel}")
-        out[name] = dict(projections_bit_equal=n_proj, logits_rel_l2=rel)
+        out[name] = dict(projections_bit_equal=n_proj)
     return out
 
 
@@ -498,7 +501,7 @@ def main() -> int:
 
     cases = kernels_phase(dev, args.quick)
     emit(dict(phase="kernels", n_cases=len(cases), all_equal=all(c["equal"] for c in cases)))
-    emit(dict(phase="small_model_card_vs_cpu", **small_cpu_vs_card(dev)))
+    emit(dict(phase="cpu_vs_card_projections", **cpu_vs_card_projections(dev)))
 
     cfg = get_config("smollm-360m")
     if args.quick:

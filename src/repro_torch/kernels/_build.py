@@ -3,7 +3,7 @@ library with a plain C interface, loaded with ``ctypes``.
 
 Each ``.cu`` is compiled by its own ``nvcc`` process (all started together)
 for ``sm_90a`` and the objects are linked into ``libcrossbar_<hash>.so`` under
-``build/`` at the root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides),
+``build/repro_torch/`` at the root of the checkout,
 keyed by a hash of the sources and flags, so an unchanged tree reuses its
 library and a changed source rebuilds.  A failed build raises; nothing
 falls back to another implementation.
@@ -31,9 +31,6 @@ last_build_seconds: Optional[float] = None  # None: library was found built
 
 
 def build_dir() -> str:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return env
     root = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", ".."))
     return os.path.join(root, "build", "repro_torch")
 

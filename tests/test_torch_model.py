@@ -237,10 +237,11 @@ def test_noisy_chip_logits_agree_to_the_chips_own_noise(tiny, tmp_path):
     whole-model logits agree only to the chip's own conversion noise —
     measured rel-L2 0.03 between the packages where the chip is 1.4 away
     from the digital model.  (Per projection, on equal inputs, the two are
-    bit-equal: test_torch_programmed.)"""
+    bit-equal: test_torch_programmed.)  Asserted rel-L2 < 0.05."""
     got, ref, _ = _chip_logits(tiny, tmp_path, dict(sigma=0.02, p_stuck_on=1e-3, p_stuck_off=1e-3))
     assert np.isfinite(got).all()
-    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 0.1
+    rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert rel < 0.05, rel
 
 
 def test_programmed_prefill_decode_consistent_with_forward(tiny):
