@@ -14,8 +14,13 @@ Phases (one JSON line each; any failure is an uncaught exception):
                save -> restore round trip
   serve_noisy  the same from a chip programmed with stuck cells and
                programming variation (noisy kernel)
-  tick_profile_*  three steady decode ticks of each chip under torch.profiler:
-               device busy time, launches per tick, the heaviest kernels
+  serve_xlstm  xlstm-350m at full width and depth (24 layers, mLSTM / sLSTM)
+               from an ideal programmed chip: the tied head on the fast
+               kernel, every sLSTM recurrence on the scan kernel (12 launches
+               per forward), incl. a store save -> restore round trip
+  tick_profile_*  three steady decode ticks of each chip under torch.profiler
+               (smollm ideal and noisy, xlstm): device busy time, launches per
+               tick, the heaviest kernels
 
 Needs one CUDA device; exits non-zero without one.  ``--quick`` (not used by
 the default run) cuts the kernel cases and the model depth for a fast check
@@ -38,7 +43,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import StageSpec, get_config, reduced  # noqa: E402
 from repro_torch.core import adc  # noqa: E402
 from repro_torch.core.crossbar import CrossbarSpec, DEFAULT_SPEC, layer_scaled_spec  # noqa: E402
 from repro_torch.device import DeviceConfig, effective_cell_codes  # noqa: E402
@@ -46,30 +51,60 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import crossbar_vmm as kvmm  # noqa: E402
 from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda, crossbar_vmm_plain  # noqa: E402
 from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda, noisy_vmm_plain  # noqa: E402
+from repro_torch.kernels import slstm_scan as kscan  # noqa: E402
+from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_plain  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.layers import CrossbarMode, crossbar_misses, crossbar_mode, reset_crossbar_misses  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
-# Published peaks of one H100 SXM (dense): HBM bytes/s and int8 tensor ops/s.
+# Published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor ops/s and
+# float32 ops/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
 
 NOISY_DEVICE = DeviceConfig(sigma=0.02, p_stuck_on=1e-3, p_stuck_off=1e-3)
 MAIN_SHAPES = [(960, 960), (960, 320), (960, 5120), (2560, 960), (960, 49152)]
+XLSTM_HEAD = (1024, 50304)  # the tied head of xlstm-350m, K x N
+# (B, S) of the scan on the xlstm path: a decode tick of the slot pool, one
+# decode row, and prefills of 32 / 48 (the longest prompt served) / 256 tokens
+SCAN_SHAPES = [(4, 1), (1, 1), (1, 32), (1, 48), (1, 256)]
+SCAN_HEADS, SCAN_DH = 4, 512  # xlstm-350m: 4 heads of 2048 / 4
+# the head is the only projection of an xlstm chip: its logits stay close to
+# the plain-matmul model's (smollm-360m's 193 projections allow 0.25)
+XLSTM_REL_L2_MAX = 0.1
 CSRC = "src/repro_torch/kernels/csrc/crossbar_vmm.cu"
+BIT_IDENTICAL = "bit-identical (torch.equal)"
+SCAN_TOLERANCE = (
+    "float32 outputs (h_all of a float32 call, c1, n1, h1): |kernel - plain| <= 1e-5 + 1e-5 |plain|, "
+    "the JAX package's kernel-vs-scan bar; bfloat16 h_all: at most one bfloat16 ULP from the plain "
+    "version's (or 1e-5 where |h| is so small that this spans several bfloat16 spacings). Not "
+    "bit-identical: the kernel sums the dh products of a dot in order, the plain version through "
+    "cuBLAS in another order, so the float32 state differs by a few ULPs and a bfloat16 rounding of "
+    "h can land on the neighbouring value"
+)
 
 KERNELS = {
     "fast": dict(
-        name="crossbar_vmm_fast", counter="fast",
+        name="crossbar_vmm_fast", counter="fast", source=CSRC, tolerance=BIT_IDENTICAL,
         replaces="src/repro/kernels/crossbar_vmm.py:190 (_fast_kernel) + :149 (_requantize_block)",
+        headline=dict(M=4, K=960, N=5120),
     ),
     "planes": dict(
-        name="crossbar_vmm_planes", counter="planes",
+        name="crossbar_vmm_planes", counter="planes", source=CSRC, tolerance=BIT_IDENTICAL,
         replaces="src/repro/kernels/crossbar_vmm.py:78 (_vmm_kernel) + :149 (_requantize_block)",
+        headline=dict(M=4, K=960, N=5120),
     ),
     "noisy": dict(
-        name="noisy_vmm_planes", counter="noisy",
+        name="noisy_vmm_planes", counter="noisy", source=CSRC, tolerance=BIT_IDENTICAL,
         replaces="src/repro/kernels/noisy_vmm.py:52 (_noisy_kernel) + crossbar_vmm.py:149 (_requantize_block)",
+        headline=dict(M=4, K=960, N=5120),
+    ),
+    "slstm": dict(
+        name="slstm_scan", counter="slstm_scan", source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+        tolerance=SCAN_TOLERANCE,
+        replaces="src/repro/kernels/slstm_scan.py:70 (slstm_scan_pallas) -> :31 (_kernel)",
+        headline=dict(dtype="bfloat16", B=4, S=1),
     ),
 }
 
@@ -195,7 +230,7 @@ def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed
     equal = bool(torch.equal(y, y_ref))
     out_min, out_max = spec.out_range
     case = dict(
-        kernel=KERNELS[kind]["name"], case=label, M=M, K=K, N=N, drop_lsb=spec.drop_lsb,
+        kernel=KERNELS[kind]["name"], case=label, M=M, K=K, N=N, shape=[M, K, N], drop_lsb=spec.drop_lsb,
         adc=(adc_cfg.mode if adc_cfg else "full"), signed=spec.signed_weights,
         sparse_x=sparse, skip_zero_planes=skip, equal=equal,
         max_abs_err=int((y.long() - y_ref.long()).abs().max()),
@@ -249,6 +284,15 @@ def kernels_phase(dev, quick: bool):
                     kind, f"{tag}/main", M, K, N, layer_scaled_spec(base, K), cfg,
                     sparse=False, skip=True, seed=seed, dev=dev, timed=main,
                 ))
+        if kind == "fast":
+            # the xlstm-350m head: M = 1 is a prefill's last position, M = 4
+            # a decode tick of the slot pool
+            for M in (1, 4):
+                seed += 1
+                cases.append(run_case(
+                    kind, f"{tag}/xlstm_head", M, *XLSTM_HEAD, layer_scaled_spec(base, XLSTM_HEAD[0]),
+                    cfg, sparse=False, skip=True, seed=seed, dev=dev, timed=True,
+                ))
         # ragged K=160 (1.25 row groups), N=16: dense / sparse x, both skips,
         # DEFAULT_SPEC (drop 10, the d < 20 branch) and the layer-scaled spec
         for spec in (base, layer_scaled_spec(base, 160)):
@@ -271,25 +315,111 @@ def kernels_phase(dev, quick: bool):
     return cases
 
 
-def kernel_summary(cases, launches):
+def scan_bound_ms(B, S, H, dh, esize):
+    """Least time for one scan: max(bytes / HBM rate, operations / float32
+    rate).  Bytes: the four recurrent matrices, ``pre`` and ``h_all`` at
+    ``esize`` bytes a value, the six (B, H, dh) float32 state tensors, each
+    once.  Operations: the four h . R products of every step, 2 B S 4 H dh^2
+    (float32: the function sums float32 products).  The S sequential steps
+    are not part of it."""
+    nbytes = 4 * H * dh * dh * esize + B * S * 5 * H * dh * esize + 6 * B * H * dh * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * B * S * 4 * H * dh * dh / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bf16_ulps(a, b):
+    """Distance in bfloat16 ULPs (ordered view of the bit patterns)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def run_scan_case(label, B, S, H, dh, dtype, seed, dev, timed):
+    """The scan kernel against its plain version from a mid-sequence state
+    (8 plain steps from the initial c = 0, n = 1, h = 0)."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    pre = normal(B, S, 4, H, dh).to(dtype)
+    rs = [(normal(H, dh, dh) * dh**-0.5).to(dtype) for _ in range(4)]
+    zero = torch.zeros((B, H, dh), device=dev)
+    _, c0, n0, h0 = slstm_scan_plain(normal(B, 8, 4, H, dh).to(dtype), *rs, zero, zero + 1.0, zero)
+    kernel = lambda: slstm_scan_cuda(pre, *rs, c0, n0, h0)
+    plain = lambda: slstm_scan_plain(pre, *rs, c0, n0, h0)
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    require(
+        [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype) for t in ref],
+        f"scan outputs {[(t.shape, t.dtype) for t in got]} != {[(t.shape, t.dtype) for t in ref]}",
+    )
+    err = [(g.float() - r.float()).abs() for g, r in zip(got, ref)]
+    within = [bool((e <= 1e-5 + 1e-5 * r.float().abs()).all()) for e, r in zip(err, ref)]
+    max_ulps = None
+    if dtype == torch.bfloat16:
+        ulps = _bf16_ulps(got[0], ref[0])
+        max_ulps = int(ulps.max())
+        within[0] = bool(((ulps <= 1) | (err[0] <= 1e-5)).all())
+    case = dict(
+        kernel=KERNELS["slstm"]["name"], case=label, dtype=str(dtype).replace("torch.", ""),
+        B=B, S=S, H=H, dh=dh, shape=[B, S, H, dh], steps=S, equal=all(within),
+        max_abs_err=max(float(e.max()) for e in err), max_bf16_ulps=max_ulps,
+        equal_by_output=dict(zip(("h_all", "c1", "n1", "h1"), within)),
+    )
+    if not case["equal"]:
+        emit({"phase": "kernels", "failed_case": case})
+        raise AssertionError(f"scan kernel disagrees with its plain version: {case}")
+    if timed:
+        case["call_ms"] = cuda_ms(kernel, reps=10)
+        case["kernel_ms"] = graph_ms(kernel)
+        case["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
+        case["bound_ms"], case["bound_by"] = scan_bound_ms(B, S, H, dh, pre.element_size())
+        case["library_ms"] = None  # no one PyTorch call computes the sLSTM scan
+    return case
+
+
+def scan_cases(dev, quick: bool):
+    cases = []
+    seed = 1000
+    for dtype in ((torch.bfloat16,) if quick else (torch.bfloat16, torch.float32)):
+        for B, S in (SCAN_SHAPES[::3] if quick else SCAN_SHAPES):
+            seed += 1
+            cases.append(run_scan_case("main", B, S, SCAN_HEADS, SCAN_DH, dtype, seed, dev, timed=True))
+        # ragged: dh = 48 is not a multiple of 32 (the kernel masks 16 lanes)
+        seed += 1
+        cases.append(run_scan_case("ragged", 2, 5, 3, 48, dtype, seed, dev, timed=False))
+    return cases
+
+
+def kernel_summary(cases, launches, launches_by_path):
     """One entry per kernel: the contract's keys (headline numbers are those
-    of the decode shape M=4, 960x5120, the widest per-layer projection) and
-    every case it was held against its plain version in, each with ``equal``
-    and, where timed, its times and bound."""
+    of the case ``KERNELS[...]["headline"]`` names: for the VMM kernels the
+    decode shape M=4, 960x5120, the widest per-layer projection of
+    smollm-360m; for the scan a bf16 decode tick of xlstm-350m) and every case
+    it was held against its plain version in, each with ``equal`` and, where
+    timed, its times and bound."""
     out = []
     for kind, meta in KERNELS.items():
         mine = [{k: v for k, v in c.items() if k != "kernel"} for c in cases if c["kernel"] == meta["name"]]
         timed = [c for c in mine if "kernel_ms" in c]
-        head = next((c for c in timed if (c["M"], c["K"], c["N"]) == (4, 960, 5120)), timed[0])
+        head = next(
+            (c for c in timed if all(c[k] == v for k, v in meta["headline"].items())), timed[0]
+        )
         out.append(dict(
-            name=meta["name"], route="cuda", source=CSRC, replaces=meta["replaces"],
+            name=meta["name"], route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=launches[meta["counter"]],
+            launches_by_path={p: n[meta["counter"]] for p, n in launches_by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in mine),
-            shape=[head["M"], head["K"], head["N"]],
+            shape=head["shape"],
             ms=head["kernel_ms"], kernel_ms=head["kernel_ms"], call_ms=head["call_ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            stored_bytes_ms=head["stored_bytes_ms"],
-            library_ms=head["library_ms"], tolerance="bit-identical (torch.equal)",
+            stored_bytes_ms=head.get("stored_bytes_ms"),
+            library_ms=head["library_ms"], tolerance=meta["tolerance"],
             equal=all(c["equal"] for c in mine), cases=mine,
         ))
     return out
@@ -305,10 +435,11 @@ def make_requests(cfg, seed, n=6):
 
 
 def drive(eng, prompts, max_new):
-    """Submit, then step until drained; returns (requests, prefills, ticks, seconds)."""
+    """Submit, then step until drained; returns (requests, prefills, ticks,
+    seconds, pure decode-tick seconds, tokens appended by decode ticks)."""
     for p in prompts:
         eng.submit(p, max_new_tokens=max_new)
-    ticks = 0
+    ticks = decoded = 0
     tick_s = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -319,41 +450,61 @@ def drive(eng, prompts, max_new):
         if n and len(eng.pending) == admitted:  # a pure decode tick
             tick_s.append(time.perf_counter() - t1)
         ticks += 1 if n else 0
+        decoded += n
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     reqs = eng.run_until_done(max_ticks=0)  # the completion ledger
-    return reqs, len(prompts), ticks, seconds, tick_s
+    return reqs, len(prompts), ticks, seconds, tick_s, decoded
 
 
 def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check):
-    n_proj = 6 * cfg.n_layers + 1
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, params, max_batch=4, max_seq=256, crossbar=crossbar, device=dev)
     torch.cuda.synchronize()
     program_s = time.perf_counter() - t0
+    # crossbar projections per forward: a layer-stacked artifact serves once
+    # per layer, a 2-D one (the tied head) once
+    n_proj = sum(a.shape[0] if a.stacked else 1 for a in eng.programmed.by_name.values())
+    n_scan = sum(spec.repeats * spec.kinds.count("slstm") for spec in cfg.stages)
     prompts = make_requests(cfg, seed)
     reset_crossbar_misses()
     kvmm.reset_counters()  # counts are read for the serving run alone
-    reqs, prefills, ticks, seconds, tick_s = drive(eng, prompts, max_new=16)
-    launches = dict(kvmm.LAUNCHES)
-    plain_calls = dict(kvmm.PLAIN_CALLS)
+    kscan.reset_counters()
+    reqs, prefills, ticks, seconds, tick_s, decoded = drive(eng, prompts, max_new=16)
+    launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES)
+    plain_calls = dict(kvmm.PLAIN_CALLS, **kscan.PLAIN_CALLS)
     tokens = [r.generated for r in reqs]
     n_tok = sum(len(t) for t in tokens)
     require(len(reqs) == len(prompts) and all(r.done for r in reqs), "not every request finished")
     require(all(len(t) == 16 for t in tokens), f"token counts {[len(t) for t in tokens]}")
     require(all(0 <= tok < cfg.vocab_size for t in tokens for tok in t), "token id out of range")
     require(crossbar_misses() == (), f"crossbar misses under strict: {crossbar_misses()}")
+    # a recurrent model samples each request's first token from its prefill
+    # logits, an attention model from its first decode tick
+    recurrent = cfg.family in ("ssm", "hybrid")
+    require(
+        decoded == n_tok - (len(reqs) if recurrent else 0),
+        f"{decoded} tokens came from decode ticks out of {n_tok} (recurrent={recurrent})",
+    )
     require(sum(plain_calls.values()) == 0, f"plain versions ran on the card path: {plain_calls}")
     forwards = prefills + ticks
     require(
         launches[counter] == n_proj * forwards,
         f"launches {launches} != {n_proj} projections x {forwards} forwards",
     )
-    require(all(v == 0 for k, v in launches.items() if k != counter), f"stray launches {launches}")
+    require(
+        launches["slstm_scan"] == n_scan * forwards,
+        f"scan launches {launches['slstm_scan']} != {n_scan} sLSTM layers x {forwards} forwards",
+    )
+    require(
+        all(v == 0 for k, v in launches.items() if k not in (counter, "slstm_scan")),
+        f"stray launches {launches}",
+    )
     line = dict(
         phase=phase, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
         vocab=cfg.vocab_size, requests=len(reqs), prompt_lens=[len(p) for p in prompts],
         new_tokens=n_tok, prefills=prefills, decode_ticks=ticks, projections=n_proj,
+        slstm_layers=n_scan, first_token_at_prefill=recurrent,
         launches=launches, plain_calls=plain_calls, misses=0,
         program_seconds=program_s, serve_seconds=seconds, tokens_per_s=n_tok / seconds,
         decode_tick_ms_median=(1e3 * statistics.median(tick_s) if tick_s else None),
@@ -481,6 +632,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
+    # the plain versions are the yardsticks: full float32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     smi = subprocess.run(
@@ -499,7 +653,7 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0, built=_build.last_build_seconds is not None,
               build_dir=os.path.relpath(_build.build_dir())))
 
-    cases = kernels_phase(dev, args.quick)
+    cases = kernels_phase(dev, args.quick) + scan_cases(dev, args.quick)
     emit(dict(phase="kernels", n_cases=len(cases), all_equal=all(c["equal"] for c in cases)))
     emit(dict(phase="cpu_vs_card_projections", **cpu_vs_card_projections(dev)))
 
@@ -545,13 +699,34 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
-    launches = dict(
-        fast=launches_ideal["fast"], planes=launches_planes["planes"], noisy=launches_noisy["noisy"]
+    # xlstm-350m at full width and depth; only the tied head is programmed
+    xcfg = get_config("xlstm-350m")
+    if args.quick:
+        xcfg = dataclasses.replace(xcfg, n_layers=2, stages=(StageSpec(kinds=("mlstm", "slstm"), repeats=1),))
+    del params, params2
+    torch.cuda.empty_cache()
+    xparams = model_lib.init_model(xcfg, seed=args.seed, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    line, launches_xlstm, eng = serve_phase("serve_xlstm", xcfg, xparams, ideal, "fast", dev, args.seed + 4, True)
+    line["logits_rel_l2_vs_plain_matmul"] = reference_check(xcfg, xparams, eng, dev)
+    require(
+        line["logits_rel_l2_vs_plain_matmul"] < XLSTM_REL_L2_MAX,
+        f"xlstm chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain matmul model",
     )
+    emit(line)
+    emit(tick_profile("tick_profile_xlstm", eng, make_requests(xcfg, args.seed + 5), ticks=3))
+    del eng
+    torch.cuda.empty_cache()
+
+    by_path = dict(
+        serve_ideal=launches_ideal, serve_ideal_paper_datapath=launches_planes,
+        serve_noisy=launches_noisy, serve_xlstm=launches_xlstm,
+    )
+    launches = {k: sum(n[k] for n in by_path.values()) for k in launches_xlstm}
     require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     print(smi, flush=True)
-    emit({"kernels": kernel_summary(cases, launches)})
+    emit({"kernels": kernel_summary(cases, launches, by_path)})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }})

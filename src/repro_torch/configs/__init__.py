@@ -9,6 +9,7 @@ from repro_torch.configs.base import (  # noqa: F401
     reduced,
 )
 
+from repro_torch.configs import xlstm_350m  # noqa: F401
 from repro_torch.configs import smollm_360m  # noqa: F401
 
-ALL_ARCHS = ["smollm-360m"]
+ALL_ARCHS = ["xlstm-350m", "smollm-360m"]

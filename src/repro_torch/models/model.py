@@ -1,5 +1,6 @@
 """Model assembly: embed -> stages (loop over stacked layers) -> norm ->
-logits (counterpart of ``repro.models.model`` for attention stages).
+logits (counterpart of ``repro.models.model`` for attention and xLSTM
+stages).
 
 Entry points:
   * ``init_model(cfg, seed, device, dtype)`` -> params (nested dicts)
@@ -22,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, StageSpec
 from repro_torch.device.programmed import _push_bind_map, name_scope
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import current_crossbar, embed, lm_head, mlp, rms_norm
 
 
@@ -41,9 +43,14 @@ def _stage_layer_maps(si: int):
     return mode.programmed.stage_layer_maps(f"stage{si}")
 
 
-def _require_attn(kind: str) -> None:
-    if not kind.startswith("attn"):
-        raise NotImplementedError(f"stage kind {kind!r} is not ported yet (attention stages only)")
+_XLSTM_KINDS = ("mlstm", "slstm")
+
+
+def _require_ported(kind: str) -> None:
+    if not (kind.startswith("attn") or kind in _XLSTM_KINDS):
+        raise NotImplementedError(
+            f"stage kind {kind!r} is not ported yet (attention and xLSTM stages only)"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -57,22 +64,36 @@ def _normal(gen, shape, scale: float, dtype, device) -> torch.Tensor:
 
 def _init_block(cfg: ModelConfig, kind: str, repeats: int, gen, dtype, device) -> Dict[str, Any]:
     """One block position of a stage, its ``repeats`` layers stacked on a
-    leading axis.  Matrices draw normal(0, fan_in**-0.5); norm scales are
-    zero (``rms_norm`` multiplies by ``1 + scale``)."""
-    _require_attn(kind)
+    leading axis.  Matrices draw normal(0, fan_in**-0.5) except the xLSTM
+    gate projection (0.02) and recurrent matrices (dh**-0.5), as in the
+    reference; norm scales are zero (``rms_norm`` multiplies by ``1 +
+    scale``).  xLSTM blocks carry their own projections and have no FFN."""
+    _require_ported(kind)
     if cfg.moe_experts or cfg.post_norm:
         raise NotImplementedError("MoE and post-norm blocks are not ported yet")
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L = repeats
 
-    def mat(k: int, n: int) -> torch.Tensor:
-        return _normal(gen, (L, k, n), k**-0.5, dtype, device)
+    def mat(k: int, n: int, scale=None) -> torch.Tensor:
+        return _normal(gen, (L, k, n), k**-0.5 if scale is None else scale, dtype, device)
 
-    block: Dict[str, Any] = {
-        "norm1": torch.zeros((L, d), dtype=dtype, device=device),
-        "mixer": {"wq": mat(d, h * dh), "wk": mat(d, kv * dh), "wv": mat(d, kv * dh), "wo": mat(h * dh, d)},
-    }
-    if cfg.d_ff:
+    if kind == "mlstm":
+        din = xlstm_mod.d_inner_of(cfg)
+        mixer = {
+            "wqkv": mat(d, 3 * din), "w_gates": mat(d, 2 * h, scale=0.02),
+            "w_ogate": mat(d, din), "out_proj": mat(din, d),
+        }
+    elif kind == "slstm":
+        din = xlstm_mod.d_inner_of(cfg)
+        xdh = din // h
+        mixer = {"w_in": mat(d, 4 * din)}
+        for g in ("r_z", "r_i", "r_f", "r_o"):
+            mixer[g] = _normal(gen, (L, h, xdh, xdh), xdh**-0.5, dtype, device)
+        mixer["out_proj"] = mat(din, d)
+    else:
+        mixer = {"wq": mat(d, h * dh), "wk": mat(d, kv * dh), "wv": mat(d, kv * dh), "wo": mat(h * dh, d)}
+    block: Dict[str, Any] = {"norm1": torch.zeros((L, d), dtype=dtype, device=device), "mixer": mixer}
+    if cfg.d_ff and kind not in _XLSTM_KINDS:
         wide = 2 * cfg.d_ff if cfg.mlp_kind in ("swiglu", "geglu") else cfg.d_ff
         block["norm2"] = torch.zeros((L, d), dtype=dtype, device=device)
         block["ffn"] = {"wi": mat(d, wide), "wo": mat(cfg.d_ff, d)}
@@ -106,17 +127,21 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None) -> Di
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, device="cuda"):
-    """Cache: list per stage of {b<i>: {k, v} stacked (repeats, B, S, KV, dh)}."""
+    """Cache: list per stage of {b<i>: leaves stacked (repeats, ...)}:
+    attention {k, v} (repeats, B, S, KV, dh) in ``dtype``; xLSTM recurrent
+    state in float32 (mLSTM {C, n}, sLSTM {c, n, h} with ``n`` at ones)."""
     device = require_device(device)
     stages = []
     for spec in cfg.stages:
         entry = {}
         for i, kind in enumerate(spec.kinds):
-            _require_attn(kind)
-            one = attn_mod.init_attention_cache(cfg, batch, seq, dtype, device)
+            _require_ported(kind)
+            if kind in _XLSTM_KINDS:
+                one = xlstm_mod.init_xlstm_cache(cfg, kind, batch, device)
+            else:
+                one = attn_mod.init_attention_cache(cfg, batch, seq, dtype, device)
             entry[f"b{i}"] = {
-                n: torch.zeros((spec.repeats,) + a.shape, dtype=dtype, device=device)
-                for n, a in one.items()
+                n: a.unsqueeze(0).repeat((spec.repeats,) + (1,) * a.ndim) for n, a in one.items()
             }
         stages.append(entry)
     return stages
@@ -135,9 +160,18 @@ def _layer(tree: Any, r: int) -> Any:
 def _apply_block(params, x, cfg: ModelConfig, kind: str, positions, cache_entry=None, decode_pos=None):
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     with name_scope("mixer"):
-        h, new_entry = attn_mod.attention_block(
-            params["mixer"], h, cfg, kind, positions, cache_entry, decode_pos
-        )
+        if kind == "mlstm":
+            h, new_entry = xlstm_mod.mlstm_block(
+                params["mixer"], h, cfg, cache_entry, decode=decode_pos is not None
+            )
+        elif kind == "slstm":
+            h, new_entry = xlstm_mod.slstm_block(
+                params["mixer"], h, cfg, cache_entry, decode=decode_pos is not None
+            )
+        else:
+            h, new_entry = attn_mod.attention_block(
+                params["mixer"], h, cfg, kind, positions, cache_entry, decode_pos
+            )
     x = x + h
     if "norm2" in params:
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
@@ -162,7 +196,7 @@ def _run_stage(
     was bound) are pushed for its blocks.  ``cache_stage`` is written in place
     through per-layer views."""
     for kind in spec.kinds:
-        _require_attn(kind)
+        _require_ported(kind)
     for r in range(spec.repeats):
         lp = _layer(params_stage, r)
         cl = _layer(cache_stage, r) if cache_stage is not None else None

@@ -7,9 +7,10 @@ refresh — are not ported and their arguments are not accepted).
 (program-once at construction, or restored from an artifact store), prefill /
 decode and sampling.  ``ServingEngine`` is the synchronous slot scheduler on
 top: a fixed pool of ``max_batch`` cache slots; a pending request is
-prefilled alone (prompt zero-padded to a bucket) and its cache copied into a
-free slot; one ``decode_step`` advances *all* slots each tick with per-slot
-positions; finished slots are freed and refilled.
+prefilled alone (an attention model's prompt zero-padded to a bucket, a
+recurrent model's at its exact length) and its cache copied into a free slot;
+one ``decode_step`` advances *all* slots each tick with per-slot positions;
+finished slots are freed and refilled.
 
 Generation is deterministic given (seed, admission order).  The decode tick
 returns host float32 logits — one device synchronisation per tick.
@@ -206,22 +207,29 @@ class ModelRunner:
         """Prefill one request and copy its cache into slot ``slot`` (in
         place).  Returns ``(cache, pos, last_tok, first_tok)``; attention
         models re-issue the last prompt token on the first decode tick, so
-        ``first_tok`` is None."""
+        ``first_tok`` is None; recurrent models sample the first token from
+        the prefill logits."""
         S = self.check_prompt(req.prompt, req.truncate)
-        # attention caches tolerate padding (masked by position): prefill a
-        # zero-padded bucket, then an idempotent re-issue of token S-1
-        bucket = min(_bucket(S), self.max_seq)
+        # recurrent state (ssm / hybrid families) would absorb padding tokens,
+        # so those prefill the exact length; attention caches tolerate padding
+        # (masked by position): prefill a zero-padded bucket, then an
+        # idempotent re-issue of token S-1
+        recurrent = self.cfg.family in ("ssm", "hybrid")
+        bucket = S if recurrent else min(_bucket(S), self.max_seq)
         prompt = np.zeros((1, bucket), np.int64)
         prompt[0, :S] = np.asarray(req.prompt)[:S]
         small_cache = self.init_cache(1)
         tokens = torch.from_numpy(prompt).to(self.device)
-        _, filled = self._with_crossbar(
+        logits, filled = self._with_crossbar(
             lambda: model_lib.prefill(self.params, self.cfg, tokens, small_cache)
         )
         for big_stage, one_stage in zip(cache, filled):
             for b, entry in one_stage.items():
                 for n, one in entry.items():
                     big_stage[b][n][:, slot] = one[:, 0]
+        if recurrent:
+            tok = int(self.sample(logits.to(torch.float32).cpu().numpy())[0])
+            return cache, S, tok, tok
         return cache, S - 1, int(np.asarray(req.prompt)[S - 1]), None
 
     def decode(self, last_tok: np.ndarray, pos: np.ndarray, cache):

@@ -29,10 +29,12 @@ def test_port_has_the_expected_modules():
         "kernels/crossbar_vmm.py", "kernels/noisy_vmm.py", "kernels/ops.py",
         "device/models.py", "device/programmed.py", "checkpoint/checkpoint.py",
         "convert.py", "models/layers.py", "models/attention.py", "models/model.py",
-        "serving/engine.py", "configs/smollm_360m.py",
+        "serving/engine.py", "configs/smollm_360m.py", "configs/xlstm_350m.py",
+        "kernels/slstm_scan.py", "models/xlstm.py",
     ):
         assert want in names, want
-    assert (PORT / "kernels" / "csrc" / "crossbar_vmm.cu").is_file()
+    for src in ("crossbar_vmm.cu", "slstm_scan.cu"):
+        assert (PORT / "kernels" / "csrc" / src).is_file(), src
 
 
 @pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
