@@ -8,7 +8,9 @@ Phases (one JSON line each; any failure is an uncaught exception):
   env          torch / CUDA / nvcc versions, the card's name and power limit
   build        builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels      every kernel against its plain PyTorch version on the card,
-               bit-identical, timed with CUDA events beside its bound
+               bit-identical, timed with CUDA events beside its bound; the
+               fast kernel also at its tile edges, ragged N and K, extreme
+               codes and past its int32 fold, and timed on a cold L2
   serve_ideal  smollm-360m at full width and depth served by ``ServingEngine``
                from an ideal programmed chip (fast kernel), incl. a store
                save -> restore round trip
@@ -135,6 +137,27 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def cold_ms(fn, reps: int = 10) -> float:
+    """Median device milliseconds of one call of ``fn`` on a cold L2: before
+    each call a 64 MB buffer is written (the L2 holds 50 MB), then a spin
+    kernel holds the device while the host enqueues the call, so that the
+    CUDA events bracket the kernel alone and not the host's launch time."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for i in range(reps):
+        flush.fill_(i & 0xFF)
+        torch.cuda._sleep(1_000_000)  # ~0.5 ms of device time
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
     """Device milliseconds per call of ``fn``: ``launches`` calls captured
     into one CUDA graph and replayed, so no host time sits between them."""
@@ -209,10 +232,22 @@ def bound_ms(kind, x, N, spec):
     return bound, ("bytes" if t_bytes >= t_ops else "operations"), 1e3 * stored / HBM_BYTES_PER_S
 
 
-def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed):
+def extreme_codes(M, K, N, spec, dev):
+    """Every input code at its maximum; weights at the two ends of the signed
+    range in alternating columns: the largest byte-plane partial sums."""
+    x = torch.full((M, K), (1 << spec.input_bits) - 1, dtype=torch.int32, device=dev)
+    lo, hi = -(1 << (spec.weight_bits - 1)), (1 << (spec.weight_bits - 1)) - 1
+    w = torch.where(torch.arange(N, device=dev) % 2 == 0, lo, hi).to(torch.int32).expand(K, N).contiguous()
+    return x, w
+
+
+def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed, extreme=False):
     rng = np.random.default_rng(seed)
-    x = make_x(rng, M, K, spec.input_bits, sparse, dev)
-    w = make_w(rng, K, N, spec, dev)
+    if extreme:
+        x, w = extreme_codes(M, K, N, spec, dev)
+    else:
+        x = make_x(rng, M, K, spec.input_bits, sparse, dev)
+        w = make_w(rng, K, N, spec, dev)
     if kind == "noisy":
         cells = effective_cell_codes(w + spec.weight_bias, spec, NOISY_DEVICE.replace(sigma=0.1))
         kernel = lambda: noisy_vmm_cuda(x, cells, spec, adc_cfg, skip_zero_planes=skip)
@@ -244,6 +279,8 @@ def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed
         # the main path pays); kernel_ms: device time alone (graph replay)
         case["call_ms"] = cuda_ms(kernel, reps=10)
         case["kernel_ms"] = graph_ms(kernel)
+        if kind == "fast":  # a real tick finds its weights cold
+            case["kernel_ms_cold"] = cold_ms(kernel)
         # the plain version of a wide layer takes seconds: time it once then
         case["plain_ms"] = cuda_ms(plain, reps=(1 if plain_first_s > 1.0 else 3), warmup=0)
         case["bound_ms"], case["bound_by"], case["stored_bytes_ms"] = bound_ms(kind, x, N, spec)
@@ -266,6 +303,7 @@ def kernels_phase(dev, quick: bool):
     # (kind, tag, base spec, adc config)
     families = [
         ("fast", "ideal", DEFAULT_SPEC, None),
+        ("fast", "ideal_unsigned", unsigned, None),
         ("planes", "safe_adaptive_signed", DEFAULT_SPEC, adc.SAFE_ADAPTIVE),
         ("planes", "safe_adaptive_unsigned", unsigned, adc.SAFE_ADAPTIVE),
         ("noisy", "safe_adaptive_signed", DEFAULT_SPEC, adc.SAFE_ADAPTIVE),
@@ -284,7 +322,7 @@ def kernels_phase(dev, quick: bool):
                     kind, f"{tag}/main", M, K, N, layer_scaled_spec(base, K), cfg,
                     sparse=False, skip=True, seed=seed, dev=dev, timed=main,
                 ))
-        if kind == "fast":
+        if kind == "fast" and tag == "ideal":
             # the xlstm-350m head: M = 1 is a prefill's last position, M = 4
             # a decode tick of the slot pool
             for M in (1, 4):
@@ -293,6 +331,7 @@ def kernels_phase(dev, quick: bool):
                     kind, f"{tag}/xlstm_head", M, *XLSTM_HEAD, layer_scaled_spec(base, XLSTM_HEAD[0]),
                     cfg, sparse=False, skip=True, seed=seed, dev=dev, timed=True,
                 ))
+            seed = fast_edge_cases(cases, base, seed, dev, quick)
         # ragged K=160 (1.25 row groups), N=16: dense / sparse x, both skips,
         # DEFAULT_SPEC (drop 10, the d < 20 branch) and the layer-scaled spec
         for spec in (base, layer_scaled_spec(base, 160)):
@@ -313,6 +352,67 @@ def kernels_phase(dev, quick: bool):
     flagged = [c for c in cases if not c["signed"] and c["adc"] != "full" and c["saturated_frac"] > 0]
     require(flagged, "no unsigned adaptive case saturated: the detect flags were never exercised")
     return cases
+
+
+def fast_edge_cases(cases, base, seed, dev, quick):
+    """The fast kernel's edges: row counts on both sides of its wmma tiles
+    and row blocks (decode up to 8 rows, prefill blocks of 32) at the main
+    shapes; ragged N and K, incl. N and K that are no multiple of 4 (4 B
+    copies instead of 16 B); extreme codes, and the int32 fold."""
+    for K, N in (MAIN_SHAPES[:1] if quick else MAIN_SHAPES):
+        for M in ((5, 33) if quick else (1, 3, 5, 8, 9, 33)):
+            seed += 1
+            cases.append(run_case(
+                "fast", "ideal/tile_edge", M, K, N, layer_scaled_spec(base, K), None,
+                sparse=False, skip=True, seed=seed, dev=dev, timed=False,
+            ))
+    ragged = [(960, n) for n in (16, 40, 100, 37)] + [(k, 64) for k in (160, 1000, 1001)]
+    for K, N in ragged:
+        for M in (3, 33):
+            seed += 1
+            cases.append(run_case(
+                "fast", "ideal/ragged_nk", M, K, N, layer_scaled_spec(base, K), None,
+                sparse=False, skip=True, seed=seed, dev=dev, timed=False,
+            ))
+    for M, K in ((4, 33024), (64, 40960)):
+        cases.append(run_case(
+            "fast", "ideal/extreme_codes", M, K, 64, layer_scaled_spec(base, K), None,
+            sparse=False, skip=True, seed=0, dev=dev, timed=False, extreme=True,
+        ))
+    cases.append(fold_case(base, dev))
+    return seed
+
+
+def fold_case(base, dev):
+    """Extreme codes where every warp's int32 byte-plane sums must be folded
+    into int64 on the way: M = 32 (each warp of a prefill block sums all K
+    rows of its tile), K = 33792 > 33025 rows (the most an int32 holds at
+    255 * 255 a row) and a grid of two blocks an SM, so that K is not split
+    over blocks.  Held against the exact product in float64 (the sums stay
+    below 2**53) requantized in int64, which is the plain version's function:
+    the plain datapath itself would need tens of GB at this size."""
+    M, K = 32, 33792
+    N = 64 * 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    spec = layer_scaled_spec(base, K)
+    x, w = extreme_codes(M, K, N, spec, dev)
+    y = crossbar_vmm_cuda(x, w, spec, None, fast=True)
+    acc = torch.matmul(x.double(), w.double()).round().long()
+    out_min, out_max = spec.out_range
+    y_ref = torch.clamp((acc + (1 << (spec.drop_lsb - 1))) >> spec.drop_lsb, out_min, out_max).int()
+    equal = bool(torch.equal(y, y_ref))
+    case = dict(
+        kernel=KERNELS["fast"]["name"], case="ideal/int32_fold", M=M, K=K, N=N, shape=[M, K, N],
+        drop_lsb=spec.drop_lsb, adc="full", signed=spec.signed_weights, sparse_x=False,
+        skip_zero_planes=True, equal=equal, max_abs_err=int((y.long() - y_ref.long()).abs().max()),
+        saturated_frac=float(((y_ref == out_min) | (y_ref == out_max)).float().mean()),
+        reference="exact float64 product, requantized",
+    )
+    del x, w, acc
+    torch.cuda.empty_cache()
+    if not equal:
+        emit({"phase": "kernels", "failed_case": case})
+        raise AssertionError(f"kernel fast disagrees with the exact product: {case}")
+    return case
 
 
 def scan_bound_ms(B, S, H, dh, esize):
@@ -417,6 +517,7 @@ def kernel_summary(cases, launches, launches_by_path):
             max_abs_err=max(c["max_abs_err"] for c in mine),
             shape=head["shape"],
             ms=head["kernel_ms"], kernel_ms=head["kernel_ms"], call_ms=head["call_ms"],
+            kernel_ms_cold=head.get("kernel_ms_cold"),
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             stored_bytes_ms=head.get("stored_bytes_ms"),
             library_ms=head["library_ms"], tolerance=meta["tolerance"],

@@ -6,8 +6,12 @@ epilogue (``csrc/crossbar_vmm.cu`` holds the sources and the design note):
 
 * ``fast=True``  -> ``fast_kernel``  replaces ``_fast_kernel`` (exact,
   full-resolution ADC).  Bound by bytes: the (K, N) int32 weight codes are
-  read once; the design shares each weight read among up to 8 input rows and
-  splits K over the warps of a block so decode-sized calls fill the card.
+  read once, by one block per column tile for all the rows of the call (up
+  to 8 at decode, 32 in prefill).  Chunks of K are staged in shared memory
+  with ``cp.async``, split into unsigned byte planes and multiplied on the
+  int8 tensor cores (``nvcuda::wmma``, u8 x u8 -> s32); the int32 sums are
+  folded into int64 every ``FOLD_ROWS`` rows of K, before they could
+  overflow.  A narrow decode call splits K over the blocks of a cluster.
 * ``fast=False`` -> ``plane_kernel<false>`` replaces ``_vmm_kernel`` with the
   ``schedule_tables`` ADC transform.  Bound by integer operations; inputs and
   cells are packed bit-planes and a column conversion is AND + popcount.
@@ -32,7 +36,11 @@ from repro_torch.kernels import _build
 
 MAX_TS = 256  # table entries in the kernel's parameter struct
 NO_DETECT = -128
-_MAX_N = 65535 * 32  # grid.y limit times columns per block
+TILE_N = 32  # output columns of the narrowest column tile of any kernel
+_MAX_N = 65535 * TILE_N  # grid.y walks the column tiles
+# rows of K an int32 byte-plane sum of the fast kernel may take (FOLD_ROWS in
+# the .cu): 255 * 255 * FOLD_ROWS < 2**31
+FOLD_ROWS = 32768
 
 # launches of each kernel (the shared epilogue runs once per launch of any)
 LAUNCHES = {"fast": 0, "planes": 0, "noisy": 0}
@@ -171,8 +179,8 @@ def crossbar_vmm_cuda(
     x_codes: (..., K) int32 unsigned input codes; w_codes: (K, N) int32 signed
     codes when ``spec.signed_weights``.  Returns (..., N) int32 output codes
     identical to ``repro_torch.core.crossbar.crossbar_vmm``.
-    ``skip_zero_planes`` is bit-identical either way (the fast kernel forms
-    whole products and has no plane to skip).
+    ``skip_zero_planes`` is bit-identical either way (the fast kernel skips
+    a high byte plane by the spec, where its bits are <= 8, not by the data).
     """
     if x_codes.device.type != "cuda":
         PLAIN_CALLS["crossbar"] += 1

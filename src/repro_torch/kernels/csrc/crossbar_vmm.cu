@@ -2,8 +2,9 @@
 //
 // Three __global__ kernels share one epilogue:
 //
-//   fast_kernel   replaces repro/kernels/crossbar_vmm.py::_fast_kernel
-//                 (full-resolution ADC, exact):  sum_k x_k * w_k.
+//   fast_kernel   replaces repro/kernels/crossbar_vmm.py::_fast_kernel (:190)
+//                 with _requantize_block (:149): the full-resolution-ADC
+//                 exact path, sum_k x_k * (w_k + bias), on int8 tensor cores.
 //   plane_kernel<false>  replaces crossbar_vmm.py::_vmm_kernel (the paper
 //                 datapath): per row group, T input planes x S weight slices
 //                 column partials, each put through the static per-(t, s)
@@ -17,21 +18,62 @@
 //                 round-half-up, clamp to out_bits, force out_max where an
 //                 overflow detect fired.
 //
-// Design.  The TPU kernels carry a two-limb int32 accumulator in VMEM across
-// a sequential k grid axis and split operands into halves and slices so every
-// dot stays exact in float32.  Here a lane owns one output column for BM input
-// rows and keeps one int64 accumulator per row in registers; the warps of a
-// block split the contraction (K ranges in fast_kernel, row groups in
-// plane_kernel) and meet in shared memory for the epilogue.  Ragged M/N/K
-// edges are masked, nothing is padded.
+// fast_kernel.  What bounds it: the HBM bytes of the (K, N) int32 weight
+// codes, read once at their stored width (4 B a weight, twice the 16-bit
+// width chip_smoke.py's bound_ms charges); its int8 tensor-core operations
+// take a fraction of the byte time even at M = 64.  What the design does
+// about it:
+//  * A block owns a column tile and all its input rows (up to 8 at decode,
+//    M <= 8; 32 in prefill), so each weight is read from HBM once per call,
+//    not once per row tile; where a call has more rows, the blocks of one
+//    column tile are neighbours in the grid and L2 serves the repeats.
+//  * It walks K in chunks.  The int32 w chunk and the int32 x chunk of all
+//    its rows are staged in shared memory with cp.async (16 B a thread
+//    where rows are 16 B aligned, 4 B otherwise).  FastDecode: 32 columns,
+//    128-row chunks, 3 staged; FastPrefill: 64 columns (x is re-read once
+//    per 64 columns), 64-row chunks, 2 staged, 3 blocks an SM.
+//  * Each landed chunk is split into unsigned byte planes, x = 256 xh + xl
+//    and wb = w + bias = 256 wh + wl (wb lies in [0, 2^16)), in 16-deep k
+//    steps, while the warps multiply the planes of the chunk before (two
+//    plane sets, one barrier a chunk).  x is row-major; w is k-contiguous
+//    per column (wmma matrix_b col_major).  That departs from the row-major
+//    w that needs no transpose: on the card a row-major u8 matrix_b compiles
+//    to a byte load per element (16 LDS.U8 and their packing a fragment),
+//    the k-contiguous one to ldmatrix, and the transpose is free, as each
+//    thread splits a 4 x 4 block of w into bytes anyway.
+//  * The warps issue nvcuda::wmma u8 x u8 -> s32 products hh, hl, lh, ll on
+//    the tensor cores (m8n32k16 at decode, m16n16k16 in prefill); a high
+//    plane is skipped where input_bits or weight_bits <= 8.  Warps split the
+//    (row tile, column tile) pairs and, where there are fewer pairs than
+//    warps, the k steps of a chunk (how a decode block fills its warps).
+//  * A u8 product is at most 255^2 = 65025, so an int32 accumulator is
+//    exact over FOLD_ROWS = 32768 rows (65025 * 32768 < 2^31; 33025 is the
+//    exact limit).  Every FOLD_ROWS rows of K, and at the end, each lane
+//    folds its four fragments element by element into int64 sums
+//    (hh << 16) + ((hl + lh) << 8) + ll.  The warps of a tile then add their
+//    sums in shared memory, and each output goes to requantize with its
+//    row's sum(x) (the TPU kernel's own bias form).
+//  * Where the grid leaves room on the card (a decode call of a narrow
+//    layer), K is split over up to FAST_MAX_SPLITS blocks of one
+//    thread-block cluster: each block stores its int64 outputs and sums of
+//    x into the shared memory of the block that writes them (distributed
+//    shared memory), so a call stays one launch with no workspace in device
+//    memory.  Remote stores, not remote loads: dependent remote loads made
+//    that epilogue cost as much as the K loop.
 //
-// What bounds them on this card.  fast_kernel: the bytes of the weight matrix
-// (4 B per weight, read once, coalesced along N); at decode sizes the card is
-// only filled if the contraction is split, hence the FAST_KS warps.  The
-// plane kernels: integer instructions.  A column conversion is a dot product
-// of a {0..2^dac-1} input plane with small cell values over <= 128 rows; both
-// operands are held as packed bit-planes (32 rows a word), so the dot product
-// is a few AND + __popc per 32 rows instead of 32 multiply-adds:
+// Plane kernels.  The TPU kernels carry a two-limb int32 accumulator in VMEM
+// across a sequential k grid axis and split operands into halves and slices
+// so every dot stays exact in float32.  Here a lane owns one output column
+// for BM input rows and keeps one int64 accumulator per row in registers;
+// the warps of a block split the row groups and meet in shared memory for
+// the epilogue.  Ragged M/N/K edges are masked, nothing is padded (in every
+// kernel).
+//
+// What bounds the plane kernels on this card: integer instructions.  A
+// column conversion is a dot product of a {0..2^dac-1} input plane with small
+// cell values over <= 128 rows; both operands are held as packed bit-planes
+// (32 rows a word), so the dot product is a few AND + __popc per 32 rows
+// instead of 32 multiply-adds:
 //     sum_r plane_r * cell_r = sum_{i<dac} sum_{j<PB} 2^(i+j) popc(xbit_i & cbit_j)
 // with PB = cell_bits planes for ideal cells and cell_bits + 8 planes for the
 // perturbed cells held as integers G = 256 * g_eff (so that the ADC sample
@@ -47,14 +89,18 @@
 // The kernels launch on the stream they are given, do not synchronise and
 // allocate nothing.  Each launcher returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 #define MAX_TS 256      // n_iters * n_slices table entries
 #define NO_DETECT (-128)
 #define GEFF_FRAC_BITS 8
-#define BN 32           // output columns per block: one per lane
-#define FAST_KS 16      // warps of a fast_kernel block; each owns a K range
+#define BN 32           // output columns per block of the plane kernels
+#define FAST_WARPS 8    // warps of a fast_kernel block
+#define FAST_MAX_SPLITS 8  // blocks of a cluster that split K (portable cluster size)
+#define FOLD_ROWS 32768 // rows of K an int32 byte-plane accumulator may sum
 #define PW 8            // warps of a plane_kernel block; each owns row groups
 #define XB_MAX 24       // input bit-planes kept per row (n_iters * dac_bits)
 #define W32_MAX 4       // 32-row words per row group (rows <= 128)
@@ -87,46 +133,350 @@ __device__ __forceinline__ int requantize(long long acc, long long xsum, bool fl
   return (int)y;
 }
 
-// Full-resolution-ADC exact path.  With no per-conversion transform the
-// biased accumulator minus the bias correction is just sum_k x_k * w_k, formed
-// here directly in int64 (the TPU kernel's halves, slices and limbs exist only
-// to stay exact in float32).  skip_zero_planes has nothing to skip here: the
-// product is formed whole, not plane by plane.  Warp ks owns the K range
-// [ks * kc, (ks + 1) * kc); x reads are warp-uniform broadcasts.
-template <int BM>
-__global__ void __launch_bounds__(BN * FAST_KS)
+// ---------------------------------------------------------------------------
+// fast_kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// A copy outside the operand stores zeros instead (the form with a source
+// size of 0 zero-fills too, but measured slower on the card).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (valid)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  else
+    *(int4*)dst = make_int4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (valid)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+  else
+    *(int*)dst = 0;
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N_PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING));
+}
+
+// Low and high bytes of four 16-bit values, packed four to a word.
+__device__ __forceinline__ void byte_planes(unsigned a, unsigned b, unsigned c, unsigned d,
+                                            unsigned& lo, unsigned& hi) {
+  lo = (a & 255u) | (b & 255u) << 8 | (c & 255u) << 16 | (d & 255u) << 24;
+  hi = (a >> 8) | (b >> 8) << 8 | (c >> 8) << 16 | (d >> 8) << 24;
+}
+
+// One fast_kernel configuration: wmma shape WM x WN x 16, NB columns and up
+// to MB input rows a block, KC rows of K a chunk, STAGES chunks staged,
+// BLOCKS blocks an SM.
+template <int WM_, int WN_, int NB_, int KC_, int MB_, int STAGES_, int BLOCKS_>
+struct FastCfg {
+  static constexpr int WM = WM_, WN = WN_, NB = NB_, KC = KC_, MB = MB_, STAGES = STAGES_;
+  static constexpr int BLOCKS = BLOCKS_;    // blocks an SM holds (register budget)
+  static constexpr int NT = NB / WN;        // column tiles of a block
+  static constexpr int KSTEPS = KC / 16;    // wmma k steps of a chunk
+  static constexpr int LPR = KC / 4;        // lanes converting one row of x
+  static constexpr int W_RAW = KC * NB * 4;           // int32 w chunk (KC, NB)
+  static constexpr int W_PLANE = KSTEPS * NB * 16;    // [k step][column][16 k]
+  static constexpr int TILE = WM * WN;
+  static constexpr int PART = FAST_WARPS * TILE * 8;  // an int64 tile a warp
+  static constexpr int RED = MB * NB * 8;             // the block's int64 outputs
+  static constexpr int E = MB * NB / (FAST_WARPS * 32);  // outputs a thread writes
+  // one byte plane of x: [k step][row][16 k], +32 B a step against conflicts
+  __host__ __device__ static constexpr int x_slab(int rows) { return rows * 16 + 32; }
+  __host__ __device__ static constexpr int x_plane(int rows) { return KSTEPS * x_slab(rows); }
+  __host__ __device__ static constexpr int stage(int rows) { return W_RAW + rows * KC * 4; }
+  // a plane set: w low, w high, x low, x high; two sets (convert one, multiply the other)
+  __host__ __device__ static constexpr int plane_set(int rows) { return 2 * W_PLANE + 2 * x_plane(rows); }
+  // receive buffers of a K split: the other blocks' int64 outputs (a share
+  // of RED from each) and their sums of x
+  static constexpr int RECV = RED + FAST_MAX_SPLITS * 8, RECV_X = FAST_MAX_SPLITS * MB * 8;
+  // shared memory in bytes (every part a multiple of 32 B); after the K
+  // loop the stages hold the warps' int64 tiles and the plane sets the
+  // receive buffers
+  __host__ __device__ static constexpr int bytes(int rows) {
+    return STAGES * stage(rows) + 2 * plane_set(rows) + TILE * 4 + MB * 8;
+  }
+  static_assert(PART <= STAGES * W_RAW, "the warps' tiles fit in the stages");
+  static_assert(MB * NB % (FAST_WARPS * 32) == 0, "outputs split evenly over the threads");
+  static_assert(MB / WM * NT <= FAST_WARPS, "a warp multiplies one tile");
+  static_assert(FOLD_ROWS % KC == 0 && STAGES >= 2 && LPR >= 8 && 32 % LPR == 0, "chunking");
+};
+// decode (M <= 8): one m8n32 tile a block, deep staging; prefill: m16n16
+// tiles, 64 columns and 32 rows a block, so that x is re-read once per 64
+// columns and three blocks fit on an SM
+using FastDecode = FastCfg<8, 32, 32, 128, 8, 3, 2>;
+using FastPrefill = FastCfg<16, 16, 64, 64, 32, 2, 3>;
+
+static_assert(65025LL * FOLD_ROWS < (1LL << 31), "an int32 byte-plane sum must stay exact");
+
+__device__ __forceinline__ int lane_of(const int4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// Exact path on the int8 tensor cores; grid (row blocks of MB, column tiles
+// of NB, K splits), FAST_WARPS warps, the K splits of a tile in one cluster.
+// Bit-identical to requantize(sum_k x * (w + bias), sum x) for codes of <= 16
+// bits.
+template <class C>
+__global__ void __launch_bounds__(FAST_WARPS * 32, C::BLOCKS)
 fast_kernel(const int* __restrict__ x, const int* __restrict__ w, int* __restrict__ out,
             const VmmParams p) {
-  __shared__ long long red[FAST_KS][BM][BN];
-  const int lane = threadIdx.x, ks = threadIdx.y;
-  const int n = blockIdx.y * BN + lane;
-  const int m0 = blockIdx.x * BM;
-  const int mrows = min(BM, p.M - m0);
-  const int kc = (p.K + FAST_KS - 1) / FAST_KS;
-  const int k_end = min(p.K, (ks + 1) * kc);
-  long long acc[BM];
+  using namespace nvcuda;
+  constexpr int WM = C::WM, WN = C::WN, BNC = C::NB, KC = C::KC, MB = C::MB, STAGES = C::STAGES;
+  using Acc = wmma::fragment<wmma::accumulator, WM, WN, 16, int>;
+  constexpr int NTHREADS = FAST_WARPS * 32;
+  constexpr int NE = Acc::num_elements;  // accumulator elements a lane holds
+  static_assert(C::RECV + C::RECV_X <= 2 * C::plane_set(WM), "the receive buffers fit in the plane sets");
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.y * BNC, m0 = blockIdx.x * MB;
+  const int mrows = min(MB, p.M - m0);
+  const int rows = (min(MB, p.M) + WM - 1) / WM * WM;  // layout, equal in every block
+  unsigned char* planes = smem + STAGES * C::stage(rows);
+  int* index = (int*)(planes + 2 * C::plane_set(rows));
+  long long* xsum = (long long*)((unsigned char*)index + C::TILE * 4);
+  long long* recv = (long long*)planes;  // after the K loop
+  long long* recv_x = recv + C::RECV / 8;
+
+  // this block's share of K: chunks [c0, c0 + nc)
+  const int n_chunks = (p.K + KC - 1) / KC;
+  const int cps = (n_chunks + gridDim.z - 1) / gridDim.z;
+  const int c0 = blockIdx.z * cps, nc = max(0, min(n_chunks, c0 + cps) - c0);
+
+  const bool vec_w = (p.N % 4 == 0) && ((uintptr_t)w % 16 == 0);
+  const bool vec_x = (p.K % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  const bool hi_x = p.input_bits > 8, hi_w = p.weight_bits > 8;
+  const unsigned x_mask = (1u << p.input_bits) - 1, w_mask = (1u << p.weight_bits) - 1;
+  const int bias = p.signed_weights ? 1 << (p.weight_bits - 1) : 0;
+
+  // warp -> (row tile ti, column tile tn) and a residue class ks of k steps
+  const int mt = (mrows + WM - 1) / WM, T = mt * C::NT;
+  const int kslices = max(1, FAST_WARPS / T);
+  const int tile = warp % T, ks = warp / T;
+  const bool active = ks < kslices;
+  const int ti = tile / C::NT, tn = tile % C::NT;
+
+  // issue the cp.asyncs of chunk c into stage s (ragged edges zero-filled)
+  auto issue = [&](int c, int s) {
+    const int k0 = c * KC;
+    int* dw = (int*)(smem + s * C::stage(rows));
+    int* dx = dw + KC * BNC;
+    if (vec_w) {
+      for (int q = tid; q < KC * BNC / 4; q += NTHREADS) {
+        const int kk = q / (BNC / 4), cc = q % (BNC / 4) * 4;
+        const bool ok = k0 + kk < p.K && n0 + cc < p.N;
+        cp_async16(dw + kk * BNC + cc, ok ? w + (size_t)(k0 + kk) * p.N + n0 + cc : w, ok);
+      }
+    } else {
+      for (int q = tid; q < KC * BNC; q += NTHREADS) {
+        const int kk = q / BNC, cc = q % BNC;
+        const bool ok = k0 + kk < p.K && n0 + cc < p.N;
+        cp_async4(dw + q, ok ? w + (size_t)(k0 + kk) * p.N + n0 + cc : w, ok);
+      }
+    }
+    if (vec_x) {
+      for (int q = tid; q < mrows * (KC / 4); q += NTHREADS) {
+        const int r = q / (KC / 4), kk = q % (KC / 4) * 4;
+        const bool ok = k0 + kk < p.K;
+        cp_async16(dx + r * KC + kk, ok ? x + (size_t)(m0 + r) * p.K + k0 + kk : x, ok);
+      }
+    } else {
+      for (int q = tid; q < mrows * KC; q += NTHREADS) {
+        const int r = q / KC, kk = q % KC;
+        const bool ok = k0 + kk < p.K;
+        cp_async4(dx + q, ok ? x + (size_t)(m0 + r) * p.K + k0 + kk : x, ok);
+      }
+    }
+  };
+
+  // split the chunk in stage s into the byte planes of set b; add each row's
+  // sum(x).  The w planes are written k-contiguous ([k step][column][16 k],
+  // matrix_b col_major), which wmma loads with ldmatrix; a row-major u8
+  // matrix_b compiles to a byte load per element.  A thread transposes 4 x 4
+  // blocks: rows 4g..4g+3, columns 4c..4c+3.
+  auto convert = [&](int s, int b) {
+    const int* dw = (const int*)(smem + s * C::stage(rows));
+    const int* dx = dw + KC * BNC;
+    unsigned char* wl = planes + b * C::plane_set(rows);
+    unsigned char* wh = wl + C::W_PLANE;
+    unsigned char* xl = wh + C::W_PLANE;
+    unsigned char* xh = xl + C::x_plane(rows);
+    for (int q = tid; q < KC * BNC / 16; q += NTHREADS) {
+      const int c = q % (BNC / 4), g = q / (BNC / 4);
+      int4 v[4];
 #pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0;
-  if (n < p.N) {
-#pragma unroll 4
-    for (int k = ks * kc; k < k_end; ++k) {
-      const long long wv = w[(size_t)k * p.N + n];
+      for (int i = 0; i < 4; ++i) v[i] = *(const int4*)(dw + (4 * g + i) * BNC + 4 * c);
 #pragma unroll
-      for (int i = 0; i < BM; ++i)
-        if (i < mrows) acc[i] += (long long)x[(size_t)(m0 + i) * p.K + k] * wv;
+      for (int j = 0; j < 4; ++j) {
+        unsigned lo, hi;
+        byte_planes((lane_of(v[0], j) + bias) & w_mask, (lane_of(v[1], j) + bias) & w_mask,
+                    (lane_of(v[2], j) + bias) & w_mask, (lane_of(v[3], j) + bias) & w_mask, lo, hi);
+        const int off = g / 4 * (BNC * 16) + (4 * c + j) * 16 + g % 4 * 4;
+        *(unsigned*)(wl + off) = lo;
+        *(unsigned*)(wh + off) = hi;
+      }
+    }
+    // LPR lanes take one row of x, 4 k each; a row stays with one warp
+    constexpr int RPW = 32 / C::LPR;
+    for (int r0 = warp * RPW; r0 < rows; r0 += FAST_WARPS * RPW) {
+      const int r = r0 + lane / C::LPR, k4 = lane % C::LPR;
+      const int4 v = r < mrows ? *(const int4*)(dx + r * KC + k4 * 4) : make_int4(0, 0, 0, 0);
+      int rsum = v.x + v.y + v.z + v.w;
+#pragma unroll
+      for (int d = C::LPR / 2; d > 0; d >>= 1) rsum += __shfl_xor_sync(FULL_MASK, rsum, d);
+      if (k4 == 0) xsum[r] += rsum;
+      unsigned lo, hi;
+      byte_planes(v.x & x_mask, v.y & x_mask, v.z & x_mask, v.w & x_mask, lo, hi);
+      const int off = k4 / 4 * C::x_slab(rows) + r * 16 + k4 % 4 * 4;
+      *(unsigned*)(xl + off) = lo;
+      *(unsigned*)(xh + off) = hi;
+    }
+  };
+
+  // acc[0..3] = hh, hl, lh, ll; accumulator fragments of one shape share
+  // their element layout, so a lane folds them element by element
+  Acc acc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0);
+  long long wide[NE];
+#pragma unroll
+  for (int i = 0; i < NE; ++i) wide[i] = 0;
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < NE; ++i)
+      wide[i] += ((long long)acc[0].x[i] << 16) + (((long long)acc[1].x[i] + acc[2].x[i]) << 8) +
+                 acc[3].x[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0);
+  };
+
+  // the products of chunk c from plane set b
+  auto multiply = [&](int c, int b) {
+    const unsigned char* wl = planes + b * C::plane_set(rows);
+    const unsigned char* wh = wl + C::W_PLANE;
+    const unsigned char* xl = wh + C::W_PLANE;
+    const unsigned char* xh = xl + C::x_plane(rows);
+    const int steps = min(C::KSTEPS, (p.K - c * KC + 15) / 16);
+    for (int j = ks; j < steps; j += kslices) {
+      wmma::fragment<wmma::matrix_a, WM, WN, 16, unsigned char, wmma::row_major> a_lo, a_hi;
+      wmma::fragment<wmma::matrix_b, WM, WN, 16, unsigned char, wmma::col_major> b_lo, b_hi;
+      const int xa = j * C::x_slab(rows) + ti * WM * 16, wa = j * (BNC * 16) + tn * WN * 16;
+      wmma::load_matrix_sync(a_lo, xl + xa, 16);
+      wmma::load_matrix_sync(b_lo, wl + wa, 16);
+      wmma::mma_sync(acc[3], a_lo, b_lo, acc[3]);
+      if (hi_w) {
+        wmma::load_matrix_sync(b_hi, wh + wa, 16);
+        wmma::mma_sync(acc[2], a_lo, b_hi, acc[2]);
+      }
+      if (hi_x) {
+        wmma::load_matrix_sync(a_hi, xh + xa, 16);
+        wmma::mma_sync(acc[1], a_hi, b_lo, acc[1]);
+        if (hi_w) wmma::mma_sync(acc[0], a_hi, b_hi, acc[0]);
+      }
+    }
+  };
+
+  if (tid < MB) xsum[tid] = 0;
+  for (int q = tid; q < C::TILE; q += NTHREADS) index[q] = q;
+  // chunk j is cp.async group j: STAGES groups here, one a round from round 0
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    if (s < nc) issue(c0 + s, s);
+    cp_async_commit();
+  }
+  // round i converts chunk i + 1 while the warps multiply chunk i: one
+  // barrier a chunk.  A stage is refilled in the round after its conversion,
+  // a plane set rewritten in the round after its products.
+  for (int i = -1; i < nc; ++i) {
+    // chunk i + 1 has landed: groups 0..i+1 of STAGES + max(i, 0) committed
+    if (i < 0)
+      cp_async_wait<STAGES - 1>();
+    else
+      cp_async_wait<STAGES - 2>();
+    __syncthreads();  // ... for every thread; the last round is done
+    if (i + 1 < nc) convert((i + 1) % STAGES, (i + 1) & 1);
+    if (i >= 0) {
+      if (i + STAGES < nc) issue(c0 + i + STAGES, i % STAGES);
+      cp_async_commit();
+      if (active) {
+        multiply(c0 + i, i & 1);
+        if ((i + 1) % (FOLD_ROWS / KC) == 0) fold();
+      }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages and plane sets are free
+  // blocks of a K split write each other's plane sets once all have left
+  // their K loops: arrive here, wait before the first remote store
+  if (gridDim.z > 1) asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+
+  // the warps of one tile meet: each lane puts its int64 sums at their place
+  // in the tile (read off a fragment of indices), then a thread adds the
+  // k residue classes of its outputs
+  long long* part = (long long*)smem;
+  if (active) {
+    fold();
+    Acc pos;
+    wmma::load_matrix_sync(pos, index, WN, wmma::mem_row_major);
 #pragma unroll
-  for (int i = 0; i < BM; ++i) red[ks][i][lane] = acc[i];
+    for (int i = 0; i < NE; ++i) part[warp * C::TILE + pos.x[i]] = wide[i];
+  }
   __syncthreads();
-  if (ks == 0 && n < p.N) {
+  long long total[C::E];
 #pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      if (i >= mrows) break;
-      long long total = 0;
-      for (int q = 0; q < FAST_KS; ++q) total += red[q][i][lane];
-      // the bias is already out of the sum: requantize with sum(x) = 0
-      out[(size_t)(m0 + i) * p.N + n] = requantize(total, 0, false, p);
+  for (int e = 0; e < C::E; ++e) {
+    const int o = tid + e * NTHREADS, r = o / BNC, c = o % BNC;
+    total[e] = 0;
+    if (r < mrows) {
+      const int t = r / WM * C::NT + c / WN, at = r % WM * WN + c % WN;
+      for (int k = 0; k < kslices; ++k) total[e] += part[(t + k * T) * C::TILE + at];
+    }
+  }
+  if (gridDim.z == 1) {
+#pragma unroll
+    for (int e = 0; e < C::E; ++e) {
+      const int o = tid + e * NTHREADS, r = o / BNC, c = o % BNC;
+      if (r < mrows && n0 + c < p.N)
+        out[(size_t)(m0 + r) * p.N + n0 + c] = requantize(total[e], xsum[r], false, p);
+    }
+    return;
+  }
+  // the K splits of this tile are the blocks of one cluster.  Output o is
+  // written by block o % nb: every block stores its sum for o and its sums
+  // of x into that block's receive buffers (distributed shared memory;
+  // stores, so no block waits on a remote load), then each block adds up
+  // what it received
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned nb = cluster.num_blocks(), rank = cluster.block_rank();
+  const int slots = (MB * BNC + nb - 1) / nb;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int e = 0; e < C::E; ++e) {
+    const int o = tid + e * NTHREADS;
+    if (o / BNC < mrows) cluster.map_shared_rank(recv, o % nb)[rank * slots + o / nb] = total[e];
+  }
+  for (int q = tid; q < (int)nb * mrows; q += NTHREADS)
+    cluster.map_shared_rank(recv_x, q / mrows)[rank * MB + q % mrows] = xsum[q % mrows];
+  cluster.sync();
+#pragma unroll
+  for (int e = 0; e < C::E; ++e) {
+    const int o = tid + e * NTHREADS, r = o / BNC, c = o % BNC;
+    if (o % nb == rank && r < mrows && n0 + c < p.N) {
+      long long sum = 0, xs = 0;
+#pragma unroll
+      for (unsigned q = 0; q < FAST_MAX_SPLITS; ++q) {
+        if (q < nb) {
+          sum += recv[q * slots + o / nb];
+          xs += recv_x[q * MB + r];
+        }
+      }
+      out[(size_t)(m0 + r) * p.N + n0 + c] = requantize(sum, xs, false, p);
     }
   }
 }
@@ -282,12 +632,45 @@ static int launch_plane(const void* x, const void* cells, void* out, const VmmPa
   return (int)cudaGetLastError();
 }
 
-// The weight matrix is the traffic: BM input rows share each weight read.
-template <int BM>
+// All rows of a block share each weight read; dynamic shared memory sized
+// for the call's row capacity.  Where the row blocks x column tiles leave
+// room on the card, K is split over up to FAST_MAX_SPLITS blocks of a
+// cluster, as many as still fit in one wave, each keeping at least two
+// chunks; otherwise the launch has no cluster (a cluster launch packs the
+// blocks onto fewer SMs).
+template <class C>
 static int launch_fast(const void* x, const void* w, void* out, const VmmParams& p,
                        cudaStream_t stream) {
-  dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN), block(BN, FAST_KS);
-  fast_kernel<BM><<<grid, block, 0, stream>>>((const int*)x, (const int*)w, (int*)out, p);
+  static int sm_count[64] = {0};  // per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && sm_count[dev] == 0)
+    cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
+  const int sms = dev < 64 && sm_count[dev] > 0 ? sm_count[dev] : 132;
+  const int rows = (min(C::MB, p.M) + C::WM - 1) / C::WM * C::WM;
+  const int smem = C::bytes(rows);
+  const dim3 tiles((p.M + C::MB - 1) / C::MB, (p.N + C::NB - 1) / C::NB);
+  const int blocks = tiles.x * tiles.y, n_chunks = (p.K + C::KC - 1) / C::KC;
+  int splits = max(1, min(min(C::BLOCKS * sms / blocks, n_chunks / 2), FAST_MAX_SPLITS));
+  const int cps = (n_chunks + splits - 1) / splits;
+  splits = (n_chunks + cps - 1) / cps;  // no split without chunks
+  err = cudaFuncSetAttribute(fast_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles.x, tiles.y, splits);
+  cfg.blockDim = dim3(FAST_WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, fast_kernel<C>, (const int*)x, (const int*)w, (int*)out, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -297,9 +680,7 @@ extern "C" {
 // device pointers.  p is a host pointer.
 int crossbar_vmm_fast(const void* x, const void* w, void* out, const VmmParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (p->M == 1) return launch_fast<1>(x, w, out, *p, st);
-  if (p->M <= 4) return launch_fast<4>(x, w, out, *p, st);
-  return launch_fast<8>(x, w, out, *p, st);
+  return p->M <= 8 ? launch_fast<FastDecode>(x, w, out, *p, st) : launch_fast<FastPrefill>(x, w, out, *p, st);
 }
 
 int crossbar_vmm_planes(const void* x, const void* w, void* out, const VmmParams* p, void* stream) {
