@@ -9,8 +9,9 @@ Phases (one JSON line each; any failure is an uncaught exception):
   build        builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels      every kernel against its plain PyTorch version on the card,
                bit-identical, timed with CUDA events beside its bound; the
-               fast kernel also at its tile edges, ragged N and K, extreme
-               codes and past its int32 fold, and timed on a cold L2
+               fast and noisy kernels also at their tile edges, ragged N and
+               K and extreme codes or cells (the fast one past its int32
+               fold too), and timed on a cold L2
   serve_ideal  smollm-360m at full width and depth served by ``ServingEngine``
                from an ideal programmed chip (fast kernel), incl. a store
                save -> restore round trip
@@ -241,15 +242,24 @@ def extreme_codes(M, K, N, spec, dev):
     return x, w
 
 
-def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed, extreme=False):
+def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed, extreme=False, cells=None):
+    """``extreme``: the fast kernel's extreme codes; ``cells`` (noisy kernel):
+    "max" puts every cell at 2**cell_bits - 1 and every input code at its
+    maximum (every partial reaches partial_max), "zero" every cell at 0."""
     rng = np.random.default_rng(seed)
     if extreme:
         x, w = extreme_codes(M, K, N, spec, dev)
     else:
         x = make_x(rng, M, K, spec.input_bits, sparse, dev)
         w = make_w(rng, K, N, spec, dev)
+    if cells == "max":
+        x = torch.full((M, K), (1 << spec.input_bits) - 1, dtype=torch.int32, device=dev)
     if kind == "noisy":
-        cells = effective_cell_codes(w + spec.weight_bias, spec, NOISY_DEVICE.replace(sigma=0.1))
+        if cells is None:
+            cells = effective_cell_codes(w + spec.weight_bias, spec, NOISY_DEVICE.replace(sigma=0.1))
+        else:
+            level = (1 << spec.cell_bits) - 1 if cells == "max" else 0
+            cells = torch.full((spec.n_slices, K, N), float(level), dtype=torch.float32, device=dev)
         kernel = lambda: noisy_vmm_cuda(x, cells, spec, adc_cfg, skip_zero_planes=skip)
         plain = lambda: noisy_vmm_plain(x, cells, spec, adc_cfg)
     else:
@@ -270,6 +280,7 @@ def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed
         sparse_x=sparse, skip_zero_planes=skip, equal=equal,
         max_abs_err=int((y.long() - y_ref.long()).abs().max()),
         saturated_frac=float(((y_ref == out_min) | (y_ref == out_max)).float().mean()),
+        out_max_frac=float((y_ref == out_max).float().mean()),
     )
     if not equal:
         emit({"phase": "kernels", "failed_case": case})
@@ -279,7 +290,7 @@ def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed
         # the main path pays); kernel_ms: device time alone (graph replay)
         case["call_ms"] = cuda_ms(kernel, reps=10)
         case["kernel_ms"] = graph_ms(kernel)
-        if kind == "fast":  # a real tick finds its weights cold
+        if kind in ("fast", "noisy"):  # a real tick finds its weights cold
             case["kernel_ms_cold"] = cold_ms(kernel)
         # the plain version of a wide layer takes seconds: time it once then
         case["plain_ms"] = cuda_ms(plain, reps=(1 if plain_first_s > 1.0 else 3), warmup=0)
@@ -332,6 +343,8 @@ def kernels_phase(dev, quick: bool):
                     cfg, sparse=False, skip=True, seed=seed, dev=dev, timed=True,
                 ))
             seed = fast_edge_cases(cases, base, seed, dev, quick)
+        if kind == "noisy":
+            seed = noisy_edge_cases(cases, tag, base, cfg, seed, dev, quick)
         # ragged K=160 (1.25 row groups), N=16: dense / sparse x, both skips,
         # DEFAULT_SPEC (drop 10, the d < 20 branch) and the layer-scaled spec
         for spec in (base, layer_scaled_spec(base, 160)):
@@ -349,8 +362,12 @@ def kernels_phase(dev, quick: bool):
             cases.append(run_case(
                 kind, f"{tag}/{vname}", 4, 200, 24, vspec, vcfg, False, True, seed, dev, timed=False,
             ))
-    flagged = [c for c in cases if not c["signed"] and c["adc"] != "full" and c["saturated_frac"] > 0]
-    require(flagged, "no unsigned adaptive case saturated: the detect flags were never exercised")
+    for name in (KERNELS["planes"]["name"], KERNELS["noisy"]["name"]):
+        flagged = [
+            c for c in cases
+            if c["kernel"] == name and not c["signed"] and c["adc"] != "full" and c["out_max_frac"] > 0
+        ]
+        require(flagged, f"no unsigned adaptive case of {name} saturated: its detect flags were never exercised")
     return cases
 
 
@@ -380,6 +397,60 @@ def fast_edge_cases(cases, base, seed, dev, quick):
             sparse=False, skip=True, seed=0, dev=dev, timed=False, extreme=True,
         ))
     cases.append(fold_case(base, dev))
+    return seed
+
+
+def noisy_edge_cases(cases, tag, base, cfg, seed, dev, quick):
+    """The noisy kernel's edges.  Main family: row counts on both sides of
+    its blocks (64 digit rows: 4 input rows at 16 digits) at a wide and a
+    narrow layer (the narrow one splits K over a cluster); ragged N and K,
+    incl. N and K that are no multiple of 4 (cp.async copies instead of
+    TMA); one-bit cells under 8-bit digits (the int64 shift-add).  Every
+    family: all cells at their maximum with every input code at its maximum
+    (every partial saturates at partial_max), and all cells at 0; the
+    unsigned spec also through the adaptive ADC, whose detect flags fire
+    there."""
+    if tag == "safe_adaptive_signed":
+        for K, N in ((960, 5120),) if quick else ((960, 5120), (960, 320)):
+            for M in ((5, 33) if quick else (1, 3, 5, 8, 9, 33)):
+                seed += 1
+                cases.append(run_case(
+                    "noisy", f"{tag}/tile_edge", M, K, N, layer_scaled_spec(base, K), cfg,
+                    sparse=False, skip=True, seed=seed, dev=dev, timed=False,
+                ))
+        ragged = [(960, n) for n in (16, 40, 100, 37)] + [(k, 64) for k in (160, 1000, 1001)]
+        for K, N in ragged:
+            for M in (3, 33):
+                seed += 1
+                cases.append(run_case(
+                    "noisy", f"{tag}/ragged_nk", M, K, N, layer_scaled_spec(base, K), cfg,
+                    sparse=False, skip=True, seed=seed, dev=dev, timed=False,
+                ))
+        # one-bit cells under 8-bit digits: a row group's shift-add no longer
+        # fits the kernel's int32 path and takes its int64 one
+        for vcfg in (None, adc.ADCConfig(guard_bits=2)):
+            seed += 1
+            cases.append(run_case(
+                "noisy", f"{tag}/cell1dac8", 9, 300, 40,
+                layer_scaled_spec(CrossbarSpec(cell_bits=1, dac_bits=8), 300), vcfg,
+                sparse=False, skip=True, seed=seed, dev=dev, timed=False,
+            ))
+    for cells in ("max", "zero"):
+        seed += 1
+        cases.append(run_case(
+            "noisy", f"{tag}/cells_{cells}", 5, 1000, 100, layer_scaled_spec(base, 1000), cfg,
+            sparse=False, skip=True, seed=seed, dev=dev, timed=False, cells=cells,
+        ))
+    if not base.signed_weights:
+        # the adaptive ADC has detect positions only at a small drop_lsb
+        # (DEFAULT_SPEC's 10): sparse and dense codes, and every cell at its
+        # maximum
+        for sparse, cells in ((True, None), (False, None), (False, "max")):
+            seed += 1
+            cases.append(run_case(
+                "noisy", "safe_adaptive_unsigned/detect", 5, 1000, 100, base, adc.SAFE_ADAPTIVE,
+                sparse=sparse, skip=True, seed=seed, dev=dev, timed=False, cells=cells,
+            ))
     return seed
 
 

@@ -12,7 +12,7 @@ epilogue (``csrc/crossbar_vmm.cu`` holds the sources and the design note):
   int8 tensor cores (``nvcuda::wmma``, u8 x u8 -> s32); the int32 sums are
   folded into int64 every ``FOLD_ROWS`` rows of K, before they could
   overflow.  A narrow decode call splits K over the blocks of a cluster.
-* ``fast=False`` -> ``plane_kernel<false>`` replaces ``_vmm_kernel`` with the
+* ``fast=False`` -> ``plane_kernel`` replaces ``_vmm_kernel`` with the
   ``schedule_tables`` ADC transform.  Bound by integer operations; inputs and
   cells are packed bit-planes and a column conversion is AND + popcount.
 * both end in ``requantize``, which replaces ``_requantize_block``.

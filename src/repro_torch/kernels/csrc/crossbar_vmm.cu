@@ -5,14 +5,15 @@
 //   fast_kernel   replaces repro/kernels/crossbar_vmm.py::_fast_kernel (:190)
 //                 with _requantize_block (:149): the full-resolution-ADC
 //                 exact path, sum_k x_k * (w_k + bias), on int8 tensor cores.
-//   plane_kernel<false>  replaces crossbar_vmm.py::_vmm_kernel (the paper
+//   plane_kernel  replaces crossbar_vmm.py::_vmm_kernel (the paper
 //                 datapath): per row group, T input planes x S weight slices
 //                 column partials, each put through the static per-(t, s)
 //                 ADC tables (LSB round-half-up shift, MSB overflow detect),
 //                 shift-added at bit t*dac_bits + s*cell_bits.
-//   plane_kernel<true>   replaces repro/kernels/noisy_vmm.py::_noisy_kernel:
-//                 the same, but each partial is an ADC sample of the analog
-//                 sum against device-perturbed cells on the 2^-8 grid.
+//   noisy_mma_kernel  replaces repro/kernels/noisy_vmm.py::_noisy_kernel
+//                 (:52): the same, but each partial is an ADC sample of the
+//                 analog sum against device-perturbed cells on the 2^-8
+//                 grid; its products run on int8 tensor cores.
 //   requantize    replaces crossbar_vmm.py::_requantize_block: remove the
 //                 signed-weight bias 2^(wb-1) * sum(x), drop drop_lsb LSBs
 //                 round-half-up, clamp to out_bits, force out_max where an
@@ -61,27 +62,69 @@
 //    memory.  Remote stores, not remote loads: dependent remote loads made
 //    that epilogue cost as much as the K loop.
 //
-// Plane kernels.  The TPU kernels carry a two-limb int32 accumulator in VMEM
-// across a sequential k grid axis and split operands into halves and slices
+// noisy_mma_kernel.  What bounds it: the HBM bytes of the float32 cells
+// g_eff (S, K, N), 4 B a cell (32 B a weight at S = 8), read once per call at
+// decode; its tensor-core operations and its per-partial epilogue take less.
+// What the design does about it:
+//  * Cells on the 2^-8 grid are integers G = rint(256 g) <= 255 * 256, held
+//    as two byte planes G = 256 Gh + Gl.  A partial of row group g, digit t,
+//    slice s, column n is p = sum_k digit_t(x_k) G_k = 256 (A Gh) + A Gl, and
+//    the ADC sample floor(p / 256 + 0.5) = (p + 128) >> 8 = A Gh +
+//    ((A Gl + 128) >> 8), exact in any order.  A group has at most 128 rows,
+//    so either u8 x u8 -> s32 sum stays below 128 * 255 * 255 < 2^31.
+//  * The digits are matrix A: one row per (input row m, digit t), m * T + t,
+//    64 rows a block (MB = 64 / T input rows: 4 at the 16 one-bit digits of
+//    the default spec, up to 16), values 0..2^dac_bits - 1 as u8.
+//  * A block owns 32 columns and walks the chunks (row group, slice) in
+//    order through a ring of four stages.  One warp loads: it waits until a
+//    stage is free, has the TMA copy the chunk's cells into it (a 3-D tensor
+//    map over (S, K, N), 32 columns x rows, zero-filled past N and K, 128 B
+//    swizzle; cp.async into the same layout where N is no multiple of 4),
+//    and for the first chunk of a row group it builds A from x into the
+//    stage itself, in the byte order the mma fragments want, while the copy
+//    is in flight.  Per-stage mbarriers (full, empty) replace block-wide
+//    barriers, so no warp waits on another's round.
+//  * Eight warps multiply, each 32 A rows (two m16 tiles, their A fragments
+//    in registers for the S chunks of a row group) x 8 columns (one n8
+//    tile).  A warp turns the cells it needs into B fragments in registers
+//    straight from the staged floats (G in the mantissa of g * 256 + 1.5 *
+//    2^23, bytes picked with prmt), with the k order inside a 32-row step
+//    permuted so that the loads are conflict-free, and issues per step two
+//    mma.m16n8k32 u8 (Gh and Gl) a tile.  Nothing accumulates across chunks
+//    in the MMA: the s32 sums go straight to the epilogue in registers, where
+//    the fragment layout says which (t, column) each sum is: sample,
+//    saturate at partial_max, the (t, s) shift and detect from a table in
+//    shared memory, and the shift-add, in int32 across the slices of a row
+//    group where that cannot overflow (every spec with cells of 2 bits or
+//    more) and into one int64 per output the lane owns.  After the last
+//    chunk the warps meet in shared memory; a thread per output adds the T
+//    digit rows of its input row and requantizes.
+//  * skip_zero_planes: a warp whose rows have no non-zero digit in a row
+//    group skips that group's products and epilogue (a zero partial changes
+//    nothing, so the output is the same either way).
+//  * Two blocks an SM (105 KB of shared memory each); a decode call of
+//    960 x 5120 is 160 blocks, more than one wave of 132 SMs.  Where the
+//    tiles leave the card idle (960 x 320: 10 blocks) K is split over the
+//    blocks of a thread-block cluster, as for fast_kernel: each block walks
+//    its share of the row groups and stores its sums into the shared memory
+//    of the cluster's first block, which requantizes.
+//
+// plane_kernel.  The TPU kernel carries a two-limb int32 accumulator in VMEM
+// across a sequential k grid axis and splits operands into halves and slices
 // so every dot stays exact in float32.  Here a lane owns one output column
 // for BM input rows and keeps one int64 accumulator per row in registers;
 // the warps of a block split the row groups and meet in shared memory for
 // the epilogue.  Ragged M/N/K edges are masked, nothing is padded (in every
-// kernel).
-//
-// What bounds the plane kernels on this card: integer instructions.  A
-// column conversion is a dot product of a {0..2^dac-1} input plane with small
-// cell values over <= 128 rows; both operands are held as packed bit-planes
-// (32 rows a word), so the dot product is a few AND + __popc per 32 rows
-// instead of 32 multiply-adds:
-//     sum_r plane_r * cell_r = sum_{i<dac} sum_{j<PB} 2^(i+j) popc(xbit_i & cbit_j)
-// with PB = cell_bits planes for ideal cells and cell_bits + 8 planes for the
-// perturbed cells held as integers G = 256 * g_eff (so that the ADC sample
-// floor(sum + 0.5) is (sum_G + 128) >> 8, exact in any order).  Input planes
-// are packed with __ballot_sync as the codes are read; cell planes are packed
-// by each lane for its own column, one slice at a time, into registers.  The
-// same AND + popcount exists as a binary tensor-core MMA on this card; using
-// it is the step that would bring these kernels near their bounds.
+// kernel).  What bounds it on this card: integer instructions.  A column
+// conversion is a dot product of a {0..2^dac-1} input plane with 2-bit cell
+// slices over <= 128 rows; both operands are held as packed bit-planes (32
+// rows a word), so the dot product is a few AND + __popc per 32 rows instead
+// of 32 multiply-adds:
+//     sum_r plane_r * cell_r = sum_{i<dac} sum_{j<cell_bits} 2^(i+j) popc(xbit_i & cbit_j)
+// Input planes are packed with __ballot_sync as the codes are read; cell
+// planes are packed by each lane for its own column, one slice at a time,
+// into registers.  noisy_mma_kernel's form, with one u8 cell plane, is the
+// step that would bring it near its bound.
 //
 // Blocks of one column tile are neighbours in the grid (blockIdx.x walks the
 // row tiles), so a weight tile read by one is found in L2 by the next.
@@ -90,9 +133,11 @@
 // allocate nothing.  Each launcher returns cudaGetLastError().
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
 #define MAX_TS 256      // n_iters * n_slices table entries
 #define NO_DETECT (-128)
@@ -162,11 +207,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING));
 }
 
-// Low and high bytes of four 16-bit values, packed four to a word.
-__device__ __forceinline__ void byte_planes(unsigned a, unsigned b, unsigned c, unsigned d,
-                                            unsigned& lo, unsigned& hi) {
-  lo = (a & 255u) | (b & 255u) << 8 | (c & 255u) << 16 | (d & 255u) << 24;
-  hi = (a >> 8) | (b >> 8) << 8 | (c >> 8) << 16 | (d >> 8) << 24;
+// Bytes 0 and 1 of four words, packed four to a word in order: the low and
+// high byte planes of four 16-bit values.
+__device__ __forceinline__ void split_bytes(unsigned a, unsigned b, unsigned c, unsigned d, unsigned& lo,
+                                            unsigned& hi) {
+  const unsigned ab = __byte_perm(a, b, 0x5140), cd = __byte_perm(c, d, 0x5140);
+  lo = __byte_perm(ab, cd, 0x5410);
+  hi = __byte_perm(ab, cd, 0x7632);
 }
 
 // One fast_kernel configuration: wmma shape WM x WN x 16, NB columns and up
@@ -314,7 +361,7 @@ fast_kernel(const int* __restrict__ x, const int* __restrict__ w, int* __restric
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         unsigned lo, hi;
-        byte_planes((lane_of(v[0], j) + bias) & w_mask, (lane_of(v[1], j) + bias) & w_mask,
+        split_bytes((lane_of(v[0], j) + bias) & w_mask, (lane_of(v[1], j) + bias) & w_mask,
                     (lane_of(v[2], j) + bias) & w_mask, (lane_of(v[3], j) + bias) & w_mask, lo, hi);
         const int off = g / 4 * (BNC * 16) + (4 * c + j) * 16 + g % 4 * 4;
         *(unsigned*)(wl + off) = lo;
@@ -331,7 +378,7 @@ fast_kernel(const int* __restrict__ x, const int* __restrict__ w, int* __restric
       for (int d = C::LPR / 2; d > 0; d >>= 1) rsum += __shfl_xor_sync(FULL_MASK, rsum, d);
       if (k4 == 0) xsum[r] += rsum;
       unsigned lo, hi;
-      byte_planes(v.x & x_mask, v.y & x_mask, v.z & x_mask, v.w & x_mask, lo, hi);
+      split_bytes(v.x & x_mask, v.y & x_mask, v.z & x_mask, v.w & x_mask, lo, hi);
       const int off = k4 / 4 * C::x_slab(rows) + r * 16 + k4 % 4 * 4;
       *(unsigned*)(xl + off) = lo;
       *(unsigned*)(xh + off) = hi;
@@ -481,15 +528,14 @@ fast_kernel(const int* __restrict__ x, const int* __restrict__ w, int* __restric
   }
 }
 
-// Paper datapath (NOISY = false: cells = int32 signed codes (K, N)) and
-// device-perturbed datapath (NOISY = true: cells = float32 effective cell
-// codes (S, K, N) in [0, 2^cell_bits - 1] on the 2^-8 grid).  Warp wy owns the
-// row groups wy, wy + PW, ...; see the design note for the bit-plane form.
-template <bool NOISY, int BM>
+// Paper datapath: cells = int32 signed codes (K, N), cut into n_slices
+// cell_bits-wide slices of w + bias.  Warp wy owns the row groups wy, wy + PW,
+// ...; see the design note for the bit-plane form.
+template <int BM>
 __global__ void __launch_bounds__(BN * PW)
-plane_kernel(const int* __restrict__ x, const void* __restrict__ cells, int* __restrict__ out,
+plane_kernel(const int* __restrict__ x, const int* __restrict__ w, int* __restrict__ out,
              const VmmParams p) {
-  constexpr int PBMAX = NOISY ? 16 : 8;  // bit-planes of one slice's cell values
+  constexpr int PBMAX = 8;  // bit-planes of one slice's cell values
   __shared__ unsigned xb[PW][BM][XB_MAX][W32_MAX];  // packed input planes, per warp
   __shared__ long long red_acc[PW][BM][BN];
   __shared__ long long red_xsum[PW][BM];
@@ -498,7 +544,7 @@ plane_kernel(const int* __restrict__ x, const void* __restrict__ cells, int* __r
   const int n = blockIdx.y * BN + lane;
   const int m0 = blockIdx.x * BM;
   const int w32 = (p.rows + 31) / 32;
-  const int pb = p.cell_bits + (NOISY ? GEFF_FRAC_BITS : 0);
+  const int pb = p.cell_bits;
   const int nxb = p.n_iters * p.dac_bits;
   const int dmask = (1 << p.dac_bits) - 1, cmask = (1 << p.cell_bits) - 1;
   const int bias = p.signed_weights ? (1 << (p.weight_bits - 1)) : 0;
@@ -543,15 +589,8 @@ plane_kernel(const int* __restrict__ x, const void* __restrict__ cells, int* __r
 #pragma unroll 4
           for (int rr = 0; rr < rmax; ++rr) {
             const int r = wi * 32 + rr;
-            unsigned c;
-            if (NOISY) {
-              const float gv = ((const float*)cells)[((size_t)s * p.K + k0 + r) * p.N + n];
-              const int gi = __float2int_rn(gv * (float)(1 << GEFF_FRAC_BITS));
-              c = (unsigned)min(max(gi, 0), (1 << pb) - 1);
-            } else {
-              const int wv = ((const int*)cells)[(size_t)(k0 + r) * p.N + n] + bias;
-              c = (unsigned)((wv >> (s * p.cell_bits)) & cmask);
-            }
+            const int wv = w[(size_t)(k0 + r) * p.N + n] + bias;
+            const unsigned c = (unsigned)((wv >> (s * p.cell_bits)) & cmask);
 #pragma unroll
             for (int j = 0; j < PBMAX; ++j) cb[j][wi] |= ((c >> j) & 1u) << rr;
           }
@@ -565,7 +604,7 @@ plane_kernel(const int* __restrict__ x, const void* __restrict__ cells, int* __r
           // an all-zero input plane drives zero current into every bitline:
           // its conversions are 0 and change nothing (bit-identical skip)
           if (p.skip_zero_planes && ((nz[i] >> tsh) & dmask) == 0) continue;
-          int sum = 0;
+          int q = 0;
           for (int ii = 0; ii < p.dac_bits; ++ii) {
             unsigned xw[W32_MAX];
 #pragma unroll
@@ -576,14 +615,9 @@ plane_kernel(const int* __restrict__ x, const void* __restrict__ cells, int* __r
                 int cnt = 0;
 #pragma unroll
                 for (int wi = 0; wi < W32_MAX; ++wi) cnt += __popc(xw[wi] & cb[j][wi]);
-                sum += cnt << (ii + j);
+                q += cnt << (ii + j);
               }
             }
-          }
-          int q = sum;
-          if (NOISY) {  // ADC sample: round half up, saturate
-            q = (q + (1 << (GEFF_FRAC_BITS - 1))) >> GEFF_FRAC_BITS;
-            q = min(q, p.partial_max);
           }
           const int gsh = p.shift[t * p.n_slices + s];
           const int d = p.detect[t * p.n_slices + s];
@@ -618,17 +652,528 @@ plane_kernel(const int* __restrict__ x, const void* __restrict__ cells, int* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// noisy_mma_kernel (K4; see the note at the top)
+// ---------------------------------------------------------------------------
+
+#define NM_NB 32         // output columns a block
+#define NM_RA 64         // rows of the digit matrix A a block: (input row m, digit t) as m * T + t
+#define NM_MB 16         // input rows a block at most
+#define NM_KR 128        // k rows a stage holds (the largest row group)
+#define NM_CONSUMERS 8   // warps that multiply; one more warp loads the stages
+#define NM_THREADS ((NM_CONSUMERS + 1) * 32)
+#define NM_STAGES 4
+#define NM_LDA 144       // bytes a row of A: 4 k steps of 32 + 16, so fragment loads are conflict-free
+
+constexpr int NM_CELLS = NM_KR * NM_NB * 4;  // float32 cells of a chunk: 128-B rows, 16-B units swizzled
+constexpr int NM_APLANE = NM_RA * NM_LDA;    // a row group's digits, [A row][k step][fragment order]
+constexpr int NM_RED = NM_RA * NM_NB * 9;    // int64 sums + flag bytes after the loop
+constexpr int NM_RED_ALIGNED = (NM_RED + 127) / 128 * 128;
+// a K split's receive buffers in rank 0: sums, sums of x, flags of every rank
+constexpr int NM_RECV = FAST_MAX_SPLITS * (NM_MB * NM_NB * 9 + NM_MB * 8);
+constexpr int NM_SMEM = 1024 + NM_STAGES * (NM_CELLS + NM_APLANE) + 2 * NM_STAGES * 8 + NM_MB * 8 + MAX_TS * 16;
+static_assert(NM_CELLS % 1024 == 0, "cell stages keep the 1024 B alignment of the 128 B swizzle");
+static_assert(NM_RED_ALIGNED + NM_RECV <= NM_STAGES * NM_CELLS, "the epilogue's sums fit in the cell stages");
+static_assert(2 * (NM_SMEM + 1024) <= 233472, "two blocks fit on an SM");
+static_assert(NM_RA == 32 * (NM_CONSUMERS / 4) && NM_NB == 8 * 4, "a warp owns 32 A rows x 8 columns");
+// a column partial of one row group is at most 128 * 255 * 255 < 2^31 on
+// either byte plane: the s32 sums of one chunk are exact
+static_assert(NM_KR * 255LL * 255LL < (1LL << 31), "an s32 chunk sum must stay exact");
+
+// D += A (16 x 32 u8, row) * B (32 x 8 u8, col), s32 accumulators
+__device__ __forceinline__ void mma_u8(int (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// raise the bytes the current phase waits for (no arrival)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// order this thread's generic shared-memory accesses before later async-proxy
+// (TMA) writes to the same memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival on bar once this thread's earlier cp.asyncs have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// box {c0.., c1.., c2} of a 3-D tensor map into shared memory; completes bytes on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, "
+      "%4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// G = rint(256 g) in the low 16 bits: g * 256 + 1.5 * 2^23 rounds to an
+// integer in the mantissa (cells lie in [0, 2^cell_bits - 1], G < 2^16)
+__device__ __forceinline__ unsigned grid_code(float g) {
+  return __float_as_uint(fmaf(g, (float)(1 << GEFF_FRAC_BITS), 12582912.0f));
+}
+
+// Device-perturbed datapath: cells = float32 effective cell codes (S, K, N)
+// in [0, 2^cell_bits - 1] on the 2^-8 grid.  Grid (row blocks of MB input
+// rows, column tiles of NM_NB); NM_CONSUMERS warps multiply, warp
+// NM_CONSUMERS loads.  Chunk c is (row group c / S, slice c % S).  Stage st
+// holds a chunk's cells as 128 rows of 32 floats, the 16-B units of row r
+// at unit ^ (r & 7) (the tensor map's 128 B swizzle), and, for the first
+// chunk of a row group, the group's digit matrix A, which the loading warp
+// builds from x.  The cells come in by TMA where N is a multiple of 4 and
+// g_eff is 16 B aligned (use_tma), else by cp.async into the same layout.
+//
+// The k order inside a 32-row step is permuted (the sum does not care):
+// byte i of the fragment registers b0, a0, a1 is physical row 8 (i >> 1) +
+// 2 tig + (i & 1) of the step, of b1, a2, a3 the same + 16.  Then for each
+// i the 32 lanes of a warp read 32 different banks of the swizzled cells.
+__global__ void __launch_bounds__(NM_THREADS, 2)
+noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int* __restrict__ out,
+                 const VmmParams p, const __grid_constant__ CUtensorMap cells_map, const int use_tma) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* aplanes = smem + NM_STAGES * NM_CELLS;
+  uint64_t* full = (uint64_t*)(aplanes + NM_STAGES * NM_APLANE);  // a stage is loaded
+  uint64_t* empty = full + NM_STAGES;                              // every consumer warp is done with it
+  long long* xsum = (long long*)(empty + NM_STAGES);
+  int4* table = (int4*)(xsum + NM_MB);  // [s][t]: round-half-up add, keep mask, detect limit
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int T = p.n_iters, S = p.n_slices, dac = p.dac_bits;
+  const int MB = min(NM_MB, NM_RA / T);
+  const int m0 = blockIdx.x * MB, n0 = blockIdx.y * NM_NB;
+  const int mrows = min(MB, p.M - m0);
+  // this block's row groups [g_begin, g_end): a K split puts the blocks of a
+  // tile in one cluster (rank blockIdx.z)
+  const int n_groups = (p.K + p.rows - 1) / p.rows, gps = (n_groups + gridDim.z - 1) / gridDim.z;
+  const int g_begin = blockIdx.z * gps, g_end = min(n_groups, g_begin + gps);
+  const int nc = (g_end - g_begin) * S;
+  const int box_rows = p.rows;  // rows of a stage the loads write; the rest stay 0
+
+  // within a row group the shift-add runs in int32 where it cannot overflow:
+  // a rounded partial is below 2 * partial_max
+  long long bound = 0;
+  for (int q = 0; q < S; ++q) bound += (2LL * p.partial_max) << (q * p.cell_bits);
+  const bool narrow = bound < (1LL << 31);
+
+  bool detects = false;
+  for (int q = tid; q < T * S; q += NM_THREADS) {  // q = t * S + s -> table[s * T + t]
+    const int gsh = max((int)p.shift[q], 0), d = p.detect[q];
+    table[q % S * T + q / S] = make_int4(gsh > 0 ? 1 << (gsh - 1) : 0, ~((1 << gsh) - 1),
+                                         (d == NO_DETECT || d >= 31) ? 0x7fffffff : 1 << max(d, 0), 0);
+    detects = detects || d != NO_DETECT;
+  }
+  for (int q = tid; q < NM_STAGES * (NM_KR - box_rows) * (NM_NB / 4); q += NM_THREADS) {
+    const int st = q / ((NM_KR - box_rows) * (NM_NB / 4)), r = q % ((NM_KR - box_rows) * (NM_NB / 4));
+    *(int4*)(smem + st * NM_CELLS + box_rows * 128 + r * 16) = make_int4(0, 0, 0, 0);
+  }
+  // rows of A past MB * T are never written: zero them once
+  for (int q = tid; q < NM_STAGES * (NM_RA - MB * T) * (NM_LDA / 16); q += NM_THREADS) {
+    const int st = q / ((NM_RA - MB * T) * (NM_LDA / 16)), r = q % ((NM_RA - MB * T) * (NM_LDA / 16));
+    *(int4*)(aplanes + st * NM_APLANE + MB * T * NM_LDA + r * 16) = make_int4(0, 0, 0, 0);
+  }
+  if (tid < NM_MB) xsum[tid] = 0;
+  if (tid == 0) {
+    for (int st = 0; st < NM_STAGES; ++st) {
+      // the loading warp's lanes arrive after their stores of A (and, without
+      // TMA, once more as their cp.asyncs land)
+      mbar_init(&full[st], use_tma ? 32 : 64);
+      mbar_init(&empty[st], NM_CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  const bool has_detect = __syncthreads_or(detects);
+
+  // a multiplying warp's output sums: int64 per (row tile, fragment element), detect flags
+  long long wide[2][4];
+  unsigned flags = 0;
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) wide[rt][e] = 0;
+  const int j = warp & 3, h = warp >> 2;
+
+  if (warp == NM_CONSUMERS) {
+    // ---- the loading warp ----
+    const unsigned xmask = (1u << p.input_bits) - 1, dmask = (1u << dac) - 1;
+    // lane: k step lane >> 3, word lane & 7 of a row's 32 bytes there; the
+    // word holds physical rows kb, kb + 1, kb + 8, kb + 9 of the step
+    const int kb = 32 * (lane >> 3) + 16 * ((lane >> 2) & 1) + 2 * (lane & 3);
+    int g = g_begin, s = 0, st = 0;
+    unsigned phase = 0;
+    for (int c = 0; c < nc; ++c) {
+      if (c >= NM_STAGES) mbar_wait(&empty[st], phase ^ 1);
+      const int k0 = g * p.rows, kr = min(p.rows, p.K - k0);
+      unsigned char* cells = smem + st * NM_CELLS;
+      if (use_tma) {
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], box_rows * NM_NB * 4);
+          tma_load_3d(cells, &cells_map, n0, k0, s, &full[st]);
+        }
+      } else {
+        const float* src = g_eff + ((size_t)s * p.K + k0) * p.N + n0;
+        for (int q = lane; q < box_rows * NM_NB; q += 32) {
+          const int kk = q >> 5, cc = q & 31;
+          const bool ok = kk < kr && n0 + cc < p.N;
+          cp_async4(cells + kk * 128 + ((((cc >> 2) ^ (kk & 7)) << 4) | ((cc & 3) << 2)),
+                    ok ? src + (size_t)kk * p.N + cc : g_eff, ok);
+        }
+        cp_async_arrive(&full[st]);
+      }
+      if (s == 0) {
+        // the group's digits: A[m * T + t][step][word] = four digit-t bytes
+        unsigned char* A = aplanes + st * NM_APLANE + 4 * lane;
+        for (int m = 0; m < MB; ++m) {
+          unsigned cw[4] = {0, 0, 0, 0};
+          if (m < mrows) {
+            const int* xr = x + (size_t)(m0 + m) * p.K + k0;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int k = kb + 8 * (i >> 1) + (i & 1);
+              cw[i] = k < kr ? (unsigned)xr[k] : 0u;
+            }
+            const int part = __reduce_add_sync(FULL_MASK, (int)(cw[0] + cw[1] + cw[2] + cw[3]));
+            if (lane == 0) xsum[m] += part;
+          }
+          for (int t = 0; t < T; ++t) {
+            const int sh = t * dac;
+            *(unsigned*)(A + (m * T + t) * NM_LDA) =
+                ((cw[0] & xmask) >> sh & dmask) | ((cw[1] & xmask) >> sh & dmask) << 8 |
+                ((cw[2] & xmask) >> sh & dmask) << 16 | ((cw[3] & xmask) >> sh & dmask) << 24;
+          }
+        }
+      }
+      mbar_arrive(&full[st]);
+      if (++s == S) { s = 0; ++g; }
+      if (++st == NM_STAGES) { st = 0; phase ^= 1; }
+    }
+  } else {
+    // ---- a multiplying warp: A rows 32 h .. 32 h + 31 (row tiles 2h, 2h + 1),
+    // columns 8 j .. 8 j + 7; this lane's rows 32 h + 16 rt + gid + 8 e ----
+    int row_t[2][2];
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) row_t[rt][e] = (32 * h + 16 * rt + gid + 8 * e) % T;
+    const int n = 8 * j + gid;
+    int cell_off[2];
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int r = 2 * tig + b;  // physical row mod 8
+      cell_off[b] = r * 128 + ((((n >> 2) ^ r)) << 4) + ((n & 3) << 2);
+    }
+    unsigned a[2][4][4];  // [row tile][k step][fragment register] of the current row group
+    int part[2][4];       // sum_s q_s << (s * cell_bits) of the current row group (narrow)
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[rt][e] = 0;
+    bool live = false;
+
+    int g = g_begin, s = 0, st = 0;
+    unsigned phase = 0;
+    for (int c = 0; c < nc; ++c) {
+      mbar_wait(&full[st], phase);
+      const unsigned char* cells = smem + st * NM_CELLS;
+      const int ksteps = (min(p.rows, p.K - g * p.rows) + 31) >> 5;
+      if (s == 0) {
+        const unsigned char* A = aplanes + st * NM_APLANE + (32 * h + gid) * NM_LDA + 4 * tig;
+        bool any = false;
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              // a0, a1, a2, a3: rows +0, +8, +0, +8; bytes +0, +0, +16, +16
+              a[rt][k][f] = *(const unsigned*)(A + (16 * rt + 8 * (f & 1)) * NM_LDA + 32 * k + 16 * (f >> 1));
+              any = any || a[rt][k][f] != 0;
+            }
+          }
+        }
+        live = __any_sync(FULL_MASK, any) || !p.skip_zero_planes;
+      }
+      if (live) {
+        int acc_lo[2][4], acc_hi[2][4];
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc_lo[rt][e] = acc_hi[rt][e] = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (k < ksteps) {
+            unsigned G[8];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+#pragma unroll
+              for (int b = 0; b < 2; ++b)
+                G[2 * q + b] = grid_code(*(const float*)(cells + cell_off[b] + (32 * k + 8 * q) * 128));
+            }
+            unsigned b0_lo, b0_hi, b1_lo, b1_hi;
+            split_bytes(G[0], G[1], G[2], G[3], b0_lo, b0_hi);
+            split_bytes(G[4], G[5], G[6], G[7], b1_lo, b1_hi);
+#pragma unroll
+            for (int rt = 0; rt < 2; ++rt) {
+              mma_u8(acc_lo[rt], a[rt][k], b0_lo, b1_lo);
+              mma_u8(acc_hi[rt], a[rt][k], b0_hi, b1_hi);
+            }
+          }
+        }
+        // ADC sample floor(sum g + 0.5) = (256 hi + lo + 128) >> 8 = hi +
+        // ((lo + 128) >> 8), saturated; the (t, s) tables; the shift-add
+        const int scb = s * p.cell_bits;
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int4 tab = table[s * T + row_t[rt][e2]];  // half, keep mask, detect limit
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int e = 2 * e2 + e1;
+              int q = min(acc_hi[rt][e] + ((acc_lo[rt][e] + (1 << (GEFF_FRAC_BITS - 1))) >> GEFF_FRAC_BITS),
+                          p.partial_max);
+              q = (q + tab.x) & tab.y;
+              if (has_detect && q >= tab.z) flags |= 1u << (4 * rt + e);
+              if (narrow)
+                part[rt][e] += q << scb;
+              else
+                wide[rt][e] += (long long)q << (row_t[rt][e2] * dac + scb);
+            }
+          }
+        }
+      }
+      if (narrow && s == S - 1) {
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            wide[rt][e] += (long long)part[rt][e] << (row_t[rt][e >> 1] * dac);
+            part[rt][e] = 0;
+          }
+        }
+      }
+      fence_proxy_async();  // the stage is read: the next TMA into it may not pass those reads
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++s == S) { s = 0; ++g; }
+      if (++st == NM_STAGES) { st = 0; phase ^= 1; }
+    }
+  }
+  __syncthreads();  // every warp is past the stages: they hold the sums now
+  long long* red = (long long*)smem;                   // [A row][column]
+  unsigned char* red_flag = smem + NM_RA * NM_NB * 8;  // the same, a byte each
+  if (warp < NM_CONSUMERS) {
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 32 * h + 16 * rt + gid + 8 * (e >> 1), col = 8 * j + 2 * tig + (e & 1);
+        red[r * NM_NB + col] = wide[rt][e];
+        red_flag[r * NM_NB + col] = (flags >> (4 * rt + e)) & 1;
+      }
+    }
+  }
+  __syncthreads();
+  // a thread per output adds the T digit rows of its input row
+  constexpr int PER = (NM_MB * NM_NB + NM_THREADS - 1) / NM_THREADS;  // outputs a thread adds
+  long long total[PER];
+  bool fl[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int o = tid + i * NM_THREADS, m = o / NM_NB, col = o % NM_NB;
+    total[i] = 0;
+    fl[i] = false;
+    if (m < mrows) {
+      for (int t = 0; t < T; ++t) {
+        total[i] += red[(m * T + t) * NM_NB + col];
+        fl[i] = fl[i] || red_flag[(m * T + t) * NM_NB + col];
+      }
+    }
+  }
+  if (gridDim.z == 1) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int o = tid + i * NM_THREADS, m = o / NM_NB, col = o % NM_NB;
+      if (m < mrows && n0 + col < p.N)
+        out[(size_t)(m0 + m) * p.N + n0 + col] = requantize(total[i], xsum[m], fl[i], p);
+    }
+    return;
+  }
+  // K split: every block stores its sums into rank 0's shared memory
+  // (remote stores; past the local sums, in the cell stages every block has
+  // left), then rank 0 adds them up and requantizes
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank(), nb = cluster.num_blocks();
+  long long* recv = (long long*)(smem + NM_RED_ALIGNED);           // [rank][m * NM_NB + col]
+  long long* recv_x = recv + FAST_MAX_SPLITS * NM_MB * NM_NB;       // [rank][m]
+  unsigned char* recv_fl = (unsigned char*)(recv_x + FAST_MAX_SPLITS * NM_MB);  // [rank][m * NM_NB + col]
+  long long* dst = cluster.map_shared_rank(recv, 0);
+  long long* dst_x = cluster.map_shared_rank(recv_x, 0);
+  unsigned char* dst_fl = cluster.map_shared_rank(recv_fl, 0);
+  cluster.sync();  // rank 0 is past its stages
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int o = tid + i * NM_THREADS;
+    if (o / NM_NB < mrows) {
+      dst[rank * NM_MB * NM_NB + o] = total[i];
+      dst_fl[rank * NM_MB * NM_NB + o] = fl[i];
+    }
+  }
+  if (tid < mrows) dst_x[rank * NM_MB + tid] = xsum[tid];
+  cluster.sync();
+  if (rank != 0) return;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int o = tid + i * NM_THREADS, m = o / NM_NB, col = o % NM_NB;
+    if (m < mrows && n0 + col < p.N) {
+      long long sum = 0, xs = 0;
+      bool f = false;
+      for (unsigned q = 0; q < nb; ++q) {
+        sum += recv[q * NM_MB * NM_NB + o];
+        xs += recv_x[q * NM_MB + m];
+        f = f || recv_fl[q * NM_MB * NM_NB + o];
+      }
+      out[(size_t)(m0 + m) * p.N + n0 + col] = requantize(sum, xs, f, p);
+    }
+  }
+}
+
+// SMs of the current device (looked up once per device)
+static int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 132;
+  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev] > 0 ? count[dev] : 132;
+}
+
+// Launch on grid (tiles, splits) with dynamic shared memory; the splits of a
+// tile form one thread-block cluster where there is more than one (a cluster
+// launch without a split packs the blocks onto fewer SMs)
+template <class... Params, class... Args>
+static int launch_split(void (*kernel)(Params...), dim3 tiles, int splits, int threads, int smem,
+                        cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles.x, tiles.y, splits);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)ptr;
+  }
+  return fn;
+}
+
+static int launch_noisy(const void* x, const void* g_eff, void* out, const VmmParams& p,
+                        cudaStream_t stream) {
+  const int MB = min(NM_MB, NM_RA / p.n_iters);
+  CUtensorMap map;
+  memset(&map, 0, sizeof map);
+  const int use_tma = p.N % 4 == 0 && (uintptr_t)g_eff % 16 == 0;
+  if (use_tma) {
+    // (S, K, N) float32, N innermost; a box is 32 columns x rows x 1 slice,
+    // zero-filled past N and K
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.K, (cuuint64_t)p.n_slices};
+    const cuuint64_t strides[2] = {(cuuint64_t)p.N * 4, (cuuint64_t)p.K * p.N * 4};
+    const cuuint32_t box[3] = {NM_NB, (cuuint32_t)p.rows, 1}, elem[3] = {1, 1, 1};
+    const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(g_eff), dims, strides,
+                              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  }
+  // where the tiles leave room on the card (two blocks an SM), K is split
+  // over up to FAST_MAX_SPLITS blocks of a cluster, every one keeping a row
+  // group at least
+  const dim3 tiles((p.M + MB - 1) / MB, (p.N + NM_NB - 1) / NM_NB);
+  const int n_groups = (p.K + p.rows - 1) / p.rows;
+  int splits = max(1, min(min(2 * sm_count() / (int)(tiles.x * tiles.y), n_groups), FAST_MAX_SPLITS));
+  const int gps = (n_groups + splits - 1) / splits;
+  splits = (n_groups + gps - 1) / gps;
+  return launch_split(noisy_mma_kernel, tiles, splits, NM_THREADS, NM_SMEM, stream, (const int*)x,
+                      (const float*)g_eff, (int*)out, p, map, use_tma);
+}
+
 // BM = 4 shares each packed cell column among four input rows; at small
 // grids BM = 1 gives the card four times the blocks instead.
 static bool wide_rows(const VmmParams& p) {
   return p.M >= 4 && (long long)((p.M + 3) / 4) * ((p.N + BN - 1) / BN) >= 132;
 }
 
-template <bool NOISY, int BM>
-static int launch_plane(const void* x, const void* cells, void* out, const VmmParams& p,
+template <int BM>
+static int launch_plane(const void* x, const void* w, void* out, const VmmParams& p,
                         cudaStream_t stream) {
   dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN), block(BN, PW);
-  plane_kernel<NOISY, BM><<<grid, block, 0, stream>>>((const int*)x, cells, (int*)out, p);
+  plane_kernel<BM><<<grid, block, 0, stream>>>((const int*)x, (const int*)w, (int*)out, p);
   return (int)cudaGetLastError();
 }
 
@@ -641,37 +1186,15 @@ static int launch_plane(const void* x, const void* cells, void* out, const VmmPa
 template <class C>
 static int launch_fast(const void* x, const void* w, void* out, const VmmParams& p,
                        cudaStream_t stream) {
-  static int sm_count[64] = {0};  // per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 64 && sm_count[dev] == 0)
-    cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
-  const int sms = dev < 64 && sm_count[dev] > 0 ? sm_count[dev] : 132;
   const int rows = (min(C::MB, p.M) + C::WM - 1) / C::WM * C::WM;
   const int smem = C::bytes(rows);
   const dim3 tiles((p.M + C::MB - 1) / C::MB, (p.N + C::NB - 1) / C::NB);
   const int blocks = tiles.x * tiles.y, n_chunks = (p.K + C::KC - 1) / C::KC;
-  int splits = max(1, min(min(C::BLOCKS * sms / blocks, n_chunks / 2), FAST_MAX_SPLITS));
+  int splits = max(1, min(min(C::BLOCKS * sm_count() / blocks, n_chunks / 2), FAST_MAX_SPLITS));
   const int cps = (n_chunks + splits - 1) / splits;
   splits = (n_chunks + cps - 1) / cps;  // no split without chunks
-  err = cudaFuncSetAttribute(fast_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles.x, tiles.y, splits);
-  cfg.blockDim = dim3(FAST_WARPS * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = splits;
-  cfg.attrs = attr;
-  cfg.numAttrs = splits > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, fast_kernel<C>, (const int*)x, (const int*)w, (int*)out, p);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_split(fast_kernel<C>, tiles, splits, FAST_WARPS * 32, smem, stream, (const int*)x, (const int*)w,
+                      (int*)out, p);
 }
 
 extern "C" {
@@ -685,16 +1208,14 @@ int crossbar_vmm_fast(const void* x, const void* w, void* out, const VmmParams* 
 
 int crossbar_vmm_planes(const void* x, const void* w, void* out, const VmmParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return wide_rows(*p) ? launch_plane<false, 4>(x, w, out, *p, st)
-                       : launch_plane<false, 1>(x, w, out, *p, st);
+  return wide_rows(*p) ? launch_plane<4>(x, w, out, *p, st) : launch_plane<1>(x, w, out, *p, st);
 }
 
 // g_eff (S, K, N) float32 effective cell codes in [0, 2^cell_bits - 1] on the
 // 2^-8 grid.
 int noisy_vmm_planes(const void* x, const void* g_eff, void* out, const VmmParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return wide_rows(*p) ? launch_plane<true, 4>(x, g_eff, out, *p, st)
-                       : launch_plane<true, 1>(x, g_eff, out, *p, st);
+  return launch_noisy(x, g_eff, out, *p, st);
 }
 
 }  // extern "C"

@@ -2,20 +2,23 @@
 
 ``noisy_vmm_cuda`` is the counterpart of ``repro.kernels.noisy_vmm.
 noisy_vmm_pallas`` and replaces the TPU kernel ``_noisy_kernel`` with
-``plane_kernel<true>`` of ``csrc/crossbar_vmm.cu``: the weight operand is the
-(S, K, N) float32 effective-cell-code array of ``repro_torch.device``; each
-column partial is ``clip(floor(plane . g_eff[s] + 0.5), 0, partial_max)``,
-then the ADC tables, shift-add and epilogue of the ideal kernel.
+``noisy_mma_kernel`` of ``csrc/crossbar_vmm.cu`` (the design note is there):
+the weight operand is the (S, K, N) float32 effective-cell-code array of
+``repro_torch.device``; each column partial is ``clip(floor(digit . g_eff[s]
++ 0.5), 0, partial_max)``, then the ADC tables, shift-add and epilogue of the
+ideal kernel.
 
 Exactness: effective codes lie on the ``2**-GEFF_FRAC_BITS`` grid, so the
-kernel holds them as integers ``G = g * 256`` and samples
-``(sum(plane * G) + 128) >> 8`` in int32 — the same value as the float
-expression in any summation order.  The guard below (``partial_max <<
-GEFF_FRAC_BITS < 2**24``) is what keeps the plain float32 version exact too.
-Bound by integer operations, like the ideal plane kernel (ten bit-planes of
-``G`` per slice instead of two); it also reads 4 * S bytes per weight.  The
-cells must lie in ``[0, 2**cell_bits - 1]``, as ``read_effective_codes``
-leaves them.
+kernel holds them as integers ``G = rint(256 g) = 256 Gh + Gl`` (two byte
+planes) and samples ``(256 (A . Gh) + A . Gl + 128) >> 8`` from two
+u8 x u8 -> s32 tensor-core products of the stacked input digits ``A`` — the
+same value as the float expression in any summation order.  The guard below
+(``partial_max << GEFF_FRAC_BITS < 2**24``) is what keeps the plain float32
+version exact too.  Bound by the bytes of the float32 cells, 4 * S a weight,
+read once per call at decode: a loading warp streams them by TMA through a
+ring of shared-memory stages while eight warps multiply; narrow layers split
+K over a thread-block cluster.  The cells must lie in ``[0, 2**cell_bits -
+1]``, as ``read_effective_codes`` leaves them.
 """
 from __future__ import annotations
 

@@ -53,6 +53,19 @@ def _require_ported(kind: str) -> None:
         )
 
 
+def _require_ported_config(cfg: ModelConfig) -> None:
+    """Refuse what the blocks would otherwise run wrong or fail on: a config
+    with post-norm blocks, MoE FFNs or a non-token front end (a parameter
+    tree carried across from the reference never passes through
+    ``init_model``, so every entry point checks)."""
+    if cfg.post_norm:
+        raise NotImplementedError(f"{cfg.name}: post-norm blocks are not ported yet")
+    if cfg.moe_experts or any(any(spec.moe) for spec in cfg.stages):
+        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
+    if cfg.frontend != "token":
+        raise NotImplementedError(f"{cfg.name}: front end {cfg.frontend!r} is not ported yet")
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -69,8 +82,6 @@ def _init_block(cfg: ModelConfig, kind: str, repeats: int, gen, dtype, device) -
     reference; norm scales are zero (``rms_norm`` multiplies by ``1 +
     scale``).  xLSTM blocks carry their own projections and have no FFN."""
     _require_ported(kind)
-    if cfg.moe_experts or cfg.post_norm:
-        raise NotImplementedError("MoE and post-norm blocks are not ported yet")
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L = repeats
 
@@ -104,10 +115,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None) -> Di
     """Random parameters from ``seed`` (own generator on ``device``), in
     ``cfg.param_dtype`` unless ``dtype`` is given.  Same tree, names and init
     scales as the reference; the draws themselves differ."""
+    _require_ported_config(cfg)
     device = require_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
-    if cfg.frontend != "token":
-        raise NotImplementedError("embedding front ends are not ported yet")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params: Dict[str, Any] = {
@@ -130,6 +140,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, dev
     """Cache: list per stage of {b<i>: leaves stacked (repeats, ...)}:
     attention {k, v} (repeats, B, S, KV, dh) in ``dtype``; xLSTM recurrent
     state in float32 (mLSTM {C, n}, sLSTM {c, n, h} with ``n`` at ones)."""
+    _require_ported_config(cfg)
     device = require_device(device)
     stages = []
     for spec in cfg.stages:
@@ -233,6 +244,7 @@ def _stages(params, cfg: ModelConfig, x, positions, cache=None, decode_pos=None)
 @torch.no_grad()
 def forward(params, cfg: ModelConfig, inp: torch.Tensor, positions=None) -> torch.Tensor:
     """Full-sequence forward. Returns logits (B, S, V)."""
+    _require_ported_config(cfg)
     x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
@@ -242,6 +254,7 @@ def forward(params, cfg: ModelConfig, inp: torch.Tensor, positions=None) -> torc
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, inp: torch.Tensor, cache):
     """Process the prompt, fill the cache; returns (last_logits, cache)."""
+    _require_ported_config(cfg)
     x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _stages(params, cfg, x, positions, cache=cache)
@@ -252,6 +265,7 @@ def prefill(params, cfg: ModelConfig, inp: torch.Tensor, cache):
 def decode_step(params, cfg: ModelConfig, inp: torch.Tensor, pos: torch.Tensor, cache):
     """One decode step at position ``pos`` — 0-d, or (B,) per-slot positions
     for continuous batching.  Returns (logits, cache)."""
+    _require_ported_config(cfg)
     x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)  # (B, 1)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
