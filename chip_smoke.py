@@ -9,12 +9,17 @@ Phases (one JSON line each; any failure is an uncaught exception):
   build        builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels      every kernel against its plain PyTorch version on the card,
                bit-identical, timed with CUDA events beside its bound; the
-               fast and noisy kernels also at their tile edges, ragged N and
-               K and extreme codes or cells (the fast one past its int32
-               fold too), and timed on a cold L2
+               three VMM kernels also at their tile edges, ragged N and K and
+               extreme codes or cells (the fast one past its int32 fold too),
+               and timed on a cold L2
+  cpu_vs_card_projections  a reduced chip programmed on the CPU, carried to
+               the card through the store: every projection bit-equal
+               (ideal, paper-datapath and noisy chips)
   serve_ideal  smollm-360m at full width and depth served by ``ServingEngine``
                from an ideal programmed chip (fast kernel), incl. a store
                save -> restore round trip
+  serve_ideal_paper_datapath  the same from a ``fast=False`` chip under the
+               adaptive ADC (the paper datapath, paper_mma_kernel)
   serve_noisy  the same from a chip programmed with stuck cells and
                programming variation (noisy kernel)
   serve_xlstm  xlstm-350m at full width and depth (24 layers, mLSTM / sLSTM)
@@ -22,8 +27,8 @@ Phases (one JSON line each; any failure is an uncaught exception):
                kernel, every sLSTM recurrence on the scan kernel (12 launches
                per forward), incl. a store save -> restore round trip
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
-               (smollm ideal and noisy, xlstm): device busy time, launches per
-               tick, the heaviest kernels
+               (smollm ideal, paper datapath and noisy, xlstm): device busy
+               time, launches per tick, the heaviest kernels
 
 Needs one CUDA device; exits non-zero without one.  ``--quick`` (not used by
 the default run) cuts the kernel cases and the model depth for a fast check
@@ -234,16 +239,17 @@ def bound_ms(kind, x, N, spec):
 
 
 def extreme_codes(M, K, N, spec, dev):
-    """Every input code at its maximum; weights at the two ends of the signed
+    """Every input code at its maximum; weights at the two ends of their
     range in alternating columns: the largest byte-plane partial sums."""
     x = torch.full((M, K), (1 << spec.input_bits) - 1, dtype=torch.int32, device=dev)
-    lo, hi = -(1 << (spec.weight_bits - 1)), (1 << (spec.weight_bits - 1)) - 1
+    lo = -(1 << (spec.weight_bits - 1)) if spec.signed_weights else 0
+    hi = lo + (1 << spec.weight_bits) - 1
     w = torch.where(torch.arange(N, device=dev) % 2 == 0, lo, hi).to(torch.int32).expand(K, N).contiguous()
     return x, w
 
 
 def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed, extreme=False, cells=None):
-    """``extreme``: the fast kernel's extreme codes; ``cells`` (noisy kernel):
+    """``extreme``: extreme codes (fast and paper kernels); ``cells`` (noisy kernel):
     "max" puts every cell at 2**cell_bits - 1 and every input code at its
     maximum (every partial reaches partial_max), "zero" every cell at 0."""
     rng = np.random.default_rng(seed)
@@ -290,8 +296,7 @@ def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed
         # the main path pays); kernel_ms: device time alone (graph replay)
         case["call_ms"] = cuda_ms(kernel, reps=10)
         case["kernel_ms"] = graph_ms(kernel)
-        if kind in ("fast", "noisy"):  # a real tick finds its weights cold
-            case["kernel_ms_cold"] = cold_ms(kernel)
+        case["kernel_ms_cold"] = cold_ms(kernel)  # a real tick finds its weights cold
         # the plain version of a wide layer takes seconds: time it once then
         case["plain_ms"] = cuda_ms(plain, reps=(1 if plain_first_s > 1.0 else 3), warmup=0)
         case["bound_ms"], case["bound_by"], case["stored_bytes_ms"] = bound_ms(kind, x, N, spec)
@@ -310,6 +315,10 @@ def kernels_phase(dev, quick: bool):
         ("cell4dac2", CrossbarSpec(cell_bits=4, dac_bits=2)),
         ("w8a8", CrossbarSpec(weight_bits=8, input_bits=8, out_bits=8, drop_lsb=7)),
         ("rows64", CrossbarSpec(rows=64)),
+        # 3-bit digits and cells: digits and cell slices that straddle the
+        # byte planes the paper and noisy kernels cut them from (drop_lsb of
+        # layer_scaled_spec at K = 200, so that the outputs do not saturate)
+        ("cell3dac3", CrossbarSpec(cell_bits=3, dac_bits=3, drop_lsb=24)),
     ]
     # (kind, tag, base spec, adc config)
     families = [
@@ -344,7 +353,9 @@ def kernels_phase(dev, quick: bool):
                 ))
             seed = fast_edge_cases(cases, base, seed, dev, quick)
         if kind == "noisy":
-            seed = noisy_edge_cases(cases, tag, base, cfg, seed, dev, quick)
+            seed = mma_edge_cases(kind, cases, tag, base, cfg, seed, dev, quick)
+        if kind == "planes":  # seeds of their own: the other cases keep theirs
+            mma_edge_cases(kind, cases, tag, base, cfg, 5000 + 100 * len(cases), dev, quick)
         # ragged K=160 (1.25 row groups), N=16: dense / sparse x, both skips,
         # DEFAULT_SPEC (drop 10, the d < 20 branch) and the layer-scaled spec
         for spec in (base, layer_scaled_spec(base, 160)):
@@ -400,22 +411,25 @@ def fast_edge_cases(cases, base, seed, dev, quick):
     return seed
 
 
-def noisy_edge_cases(cases, tag, base, cfg, seed, dev, quick):
-    """The noisy kernel's edges.  Main family: row counts on both sides of
-    its blocks (64 digit rows: 4 input rows at 16 digits) at a wide and a
-    narrow layer (the narrow one splits K over a cluster); ragged N and K,
-    incl. N and K that are no multiple of 4 (cp.async copies instead of
-    TMA); one-bit cells under 8-bit digits (the int64 shift-add).  Every
-    family: all cells at their maximum with every input code at its maximum
-    (every partial saturates at partial_max), and all cells at 0; the
-    unsigned spec also through the adaptive ADC, whose detect flags fire
-    there."""
+def mma_edge_cases(kind, cases, tag, base, cfg, seed, dev, quick):
+    """The edges of the paper ("planes") and noisy kernels, one pipeline.
+    Main family: row counts on both sides of their blocks (64 digit rows: 4
+    input rows at 16 digits) at a wide and a narrow layer (the narrow one
+    splits K over a cluster); ragged N and K, incl. N and K that are no
+    multiple of 4 (cp.async copies instead of TMA); one-bit cells under
+    8-bit digits (the int64 shift-add).  Every family, paper kernel: every
+    input code at its maximum with the weight codes at both ends of their
+    range, at the layer-scaled spec and at DEFAULT_SPEC's drop_lsb of 10
+    (where the unsigned family's detect flags fire); noisy kernel: all cells
+    at their maximum with every input code at its maximum (every partial
+    saturates at partial_max), and all cells at 0, and the unsigned spec
+    also through the adaptive ADC, whose detect flags fire there."""
     if tag == "safe_adaptive_signed":
         for K, N in ((960, 5120),) if quick else ((960, 5120), (960, 320)):
             for M in ((5, 33) if quick else (1, 3, 5, 8, 9, 33)):
                 seed += 1
                 cases.append(run_case(
-                    "noisy", f"{tag}/tile_edge", M, K, N, layer_scaled_spec(base, K), cfg,
+                    kind, f"{tag}/tile_edge", M, K, N, layer_scaled_spec(base, K), cfg,
                     sparse=False, skip=True, seed=seed, dev=dev, timed=False,
                 ))
         ragged = [(960, n) for n in (16, 40, 100, 37)] + [(k, 64) for k in (160, 1000, 1001)]
@@ -423,7 +437,7 @@ def noisy_edge_cases(cases, tag, base, cfg, seed, dev, quick):
             for M in (3, 33):
                 seed += 1
                 cases.append(run_case(
-                    "noisy", f"{tag}/ragged_nk", M, K, N, layer_scaled_spec(base, K), cfg,
+                    kind, f"{tag}/ragged_nk", M, K, N, layer_scaled_spec(base, K), cfg,
                     sparse=False, skip=True, seed=seed, dev=dev, timed=False,
                 ))
         # one-bit cells under 8-bit digits: a row group's shift-add no longer
@@ -431,10 +445,17 @@ def noisy_edge_cases(cases, tag, base, cfg, seed, dev, quick):
         for vcfg in (None, adc.ADCConfig(guard_bits=2)):
             seed += 1
             cases.append(run_case(
-                "noisy", f"{tag}/cell1dac8", 9, 300, 40,
+                kind, f"{tag}/cell1dac8", 9, 300, 40,
                 layer_scaled_spec(CrossbarSpec(cell_bits=1, dac_bits=8), 300), vcfg,
                 sparse=False, skip=True, seed=seed, dev=dev, timed=False,
             ))
+    if kind == "planes":
+        for spec in (layer_scaled_spec(base, 1000), base):
+            cases.append(run_case(
+                kind, f"{tag}/extreme_codes", 5, 1000, 100, spec, cfg,
+                sparse=False, skip=True, seed=0, dev=dev, timed=False, extreme=True,
+            ))
+        return seed
     for cells in ("max", "zero"):
         seed += 1
         cases.append(run_case(
@@ -761,7 +782,8 @@ def cpu_vs_card_projections(dev):
     """Reduced smollm, float32: one chip programmed on the CPU is carried over
     to the card through the artifact store, and every projection is held
     bit-equal on the same float input — the plain versions on the CPU against
-    the kernels on the card."""
+    the kernels on the card — for an ideal chip (fast kernel), a ``fast=False``
+    one under the adaptive ADC (paper kernel) and a noisy one."""
     from repro_torch.device.programmed import programmed_linear
 
     cfg = reduced(get_config("smollm-360m"))
@@ -769,8 +791,8 @@ def cpu_vs_card_projections(dev):
     p_dev = _to(p_cpu, dev)
     rng = np.random.default_rng(5)
     out = {}
-    for name, dcfg in (("ideal", None), ("noisy", NOISY_DEVICE)):
-        mode = CrossbarMode(enabled=True, strict=True, device=dcfg)
+    for name, fast, dcfg in (("ideal", True, None), ("paper", False, None), ("noisy", True, NOISY_DEVICE)):
+        mode = CrossbarMode(enabled=True, strict=True, fast=fast, device=dcfg)
         eng_cpu = ServingEngine(cfg, p_cpu, max_batch=2, max_seq=32, crossbar=mode, device="cpu")
         with tempfile.TemporaryDirectory() as d:
             eng_cpu.save_artifacts(d)
@@ -847,18 +869,29 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
-    # the paper datapath (fast=False artifacts) through the engine, at a
-    # depth of 2: its kernel's place on the main path
-    cfg2 = dataclasses.replace(cfg, n_layers=2, stages=())
-    params2 = {
-        "embed": params["embed"], "final_norm": params["final_norm"],
-        "stage0": _slice_layers(params["stage0"], 2),
-    }
+    # the paper datapath: fast=False artifacts under the default adaptive ADC
+    # (SAFE_ADAPTIVE), the same model at full depth.  Its logits are printed,
+    # not held to the ideal chip's bound: on signed weights SAFE_ADAPTIVE
+    # rounds the low (t, s) conversions of the biased cells away, a mean error
+    # of about -0.4 output LSB a projection in the JAX package's datapath as
+    # in the port's, which compounds over the layers.  The kernel is held
+    # bit-identical to its plain version in the kernels phase and on every
+    # projection of the cpu_vs_card_projections phase
+    torch.cuda.reset_peak_memory_stats()
     line, launches_planes, eng = serve_phase(
-        "serve_ideal_paper_datapath", cfg2, params2,
+        "serve_ideal_paper_datapath", cfg, params,
         CrossbarMode(enabled=True, strict=True, fast=False), "planes", dev, args.seed + 2, False,
     )
+    if not args.quick:  # 6 prefills + 32 decode ticks, 193 projections each
+        require(
+            line["projections"] == 193 and line["prefills"] + line["decode_ticks"] == 38
+            and launches_planes["planes"] == 7334,
+            f"paper datapath: {launches_planes['planes']} launches of {line['projections']} projections "
+            f"in {line['prefills']} + {line['decode_ticks']} forwards, expected 193 x 38 = 7334",
+        )
+    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)
     emit(line)
+    emit(tick_profile("tick_profile_paper", eng, make_requests(cfg, args.seed + 3), ticks=3))
     del eng
     torch.cuda.empty_cache()
 
@@ -875,7 +908,7 @@ def main() -> int:
     xcfg = get_config("xlstm-350m")
     if args.quick:
         xcfg = dataclasses.replace(xcfg, n_layers=2, stages=(StageSpec(kinds=("mlstm", "slstm"), repeats=1),))
-    del params, params2
+    del params
     torch.cuda.empty_cache()
     xparams = model_lib.init_model(xcfg, seed=args.seed, device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -903,12 +936,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }})
     return 0
-
-
-def _slice_layers(tree, n):
-    if isinstance(tree, dict):
-        return {k: _slice_layers(v, n) for k, v in tree.items()}
-    return tree[:n].contiguous()
 
 
 if __name__ == "__main__":

@@ -12,9 +12,16 @@ epilogue (``csrc/crossbar_vmm.cu`` holds the sources and the design note):
   int8 tensor cores (``nvcuda::wmma``, u8 x u8 -> s32); the int32 sums are
   folded into int64 every ``FOLD_ROWS`` rows of K, before they could
   overflow.  A narrow decode call splits K over the blocks of a cluster.
-* ``fast=False`` -> ``plane_kernel`` replaces ``_vmm_kernel`` with the
-  ``schedule_tables`` ADC transform.  Bound by integer operations; inputs and
-  cells are packed bit-planes and a column conversion is AND + popcount.
+* ``fast=False`` -> ``paper_mma_kernel`` replaces ``_vmm_kernel`` with the
+  ``schedule_tables`` ADC transform (the paper datapath).  Bound by the bytes
+  of the int32 codes, read once per call at decode.  It is
+  ``noisy_mma_kernel``'s pipeline with the codes as the cell source: a
+  loading warp streams each row group's codes by TMA and builds the stacked
+  input digits (matrix A), eight warps cut each ``cell_bits`` slice of
+  ``w + bias`` into u8 B fragments in registers and issue one
+  ``mma.m16n8k32`` u8 a slice; the exact s32 partials go through the (t, s)
+  tables and the shift-add in registers.  Narrow layers split K over a
+  cluster.
 * both end in ``requantize``, which replaces ``_requantize_block``.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel or
@@ -79,9 +86,9 @@ def _param_template(spec: CrossbarSpec, adc_cfg: Optional[ADCConfig]) -> bytes:
     if T * S > MAX_TS:
         raise ValueError(f"n_iters * n_slices = {T * S} exceeds the kernel's {MAX_TS} table entries")
     if not (1 <= spec.rows <= 128):
-        raise ValueError(f"kernels take rows in 1..128 (four 32-row words), got {spec.rows}")
+        raise ValueError(f"kernels take rows in 1..128 (a stage of 128 rows), got {spec.rows}")
     if T * spec.dac_bits > 24:
-        raise ValueError(f"kernels keep at most 24 input bit-planes, got {T * spec.dac_bits}")
+        raise ValueError(f"kernels take digits of at most 24 bits in all, got {T * spec.dac_bits}")
     if not (0 < spec.drop_lsb < 48 and 1 <= spec.out_bits <= 31):
         raise ValueError(f"kernels take 0 < drop_lsb < 48 and out_bits <= 31, got {spec}")
     p = VmmParams(

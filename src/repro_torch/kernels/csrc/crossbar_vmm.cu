@@ -5,15 +5,17 @@
 //   fast_kernel   replaces repro/kernels/crossbar_vmm.py::_fast_kernel (:190)
 //                 with _requantize_block (:149): the full-resolution-ADC
 //                 exact path, sum_k x_k * (w_k + bias), on int8 tensor cores.
-//   plane_kernel  replaces crossbar_vmm.py::_vmm_kernel (the paper
-//                 datapath): per row group, T input planes x S weight slices
+//   paper_mma_kernel  replaces crossbar_vmm.py::_vmm_kernel (:78) with
+//                 _schedule_tables (:55), the paper datapath: per row group,
+//                 T input digits x S cell slices of w + bias give exact
 //                 column partials, each put through the static per-(t, s)
-//                 ADC tables (LSB round-half-up shift, MSB overflow detect),
-//                 shift-added at bit t*dac_bits + s*cell_bits.
+//                 ADC tables (LSB round-half-up shift, MSB overflow detect)
+//                 and shift-added at bit t*dac_bits + s*cell_bits.
 //   noisy_mma_kernel  replaces repro/kernels/noisy_vmm.py::_noisy_kernel
 //                 (:52): the same, but each partial is an ADC sample of the
 //                 analog sum against device-perturbed cells on the 2^-8
-//                 grid; its products run on int8 tensor cores.
+//                 grid.  The two are one pipeline, mma_vmm<PAPER>, on int8
+//                 tensor cores; they differ only in their cell source.
 //   requantize    replaces crossbar_vmm.py::_requantize_block: remove the
 //                 signed-weight bias 2^(wb-1) * sum(x), drop drop_lsb LSBs
 //                 round-half-up, clamp to out_bits, force out_max where an
@@ -62,69 +64,69 @@
 //    memory.  Remote stores, not remote loads: dependent remote loads made
 //    that epilogue cost as much as the K loop.
 //
-// noisy_mma_kernel.  What bounds it: the HBM bytes of the float32 cells
-// g_eff (S, K, N), 4 B a cell (32 B a weight at S = 8), read once per call at
-// decode; its tensor-core operations and its per-partial epilogue take less.
-// What the design does about it:
-//  * Cells on the 2^-8 grid are integers G = rint(256 g) <= 255 * 256, held
-//    as two byte planes G = 256 Gh + Gl.  A partial of row group g, digit t,
-//    slice s, column n is p = sum_k digit_t(x_k) G_k = 256 (A Gh) + A Gl, and
-//    the ADC sample floor(p / 256 + 0.5) = (p + 128) >> 8 = A Gh +
-//    ((A Gl + 128) >> 8), exact in any order.  A group has at most 128 rows,
-//    so either u8 x u8 -> s32 sum stays below 128 * 255 * 255 < 2^31.
+// mma_vmm (paper_mma_kernel, noisy_mma_kernel).  What bounds them: the HBM
+// bytes of the cells, read once per call at decode: K3's (K, N) int32 codes
+// (4 B a weight, 0.0059 ms at 960 x 5120) and K4's float32 cells g_eff
+// (S, K, N) (32 B a weight at S = 8, 0.047 ms), against their u8 products
+// (K3: S, K4: 2 S per k step) and a per-partial epilogue.  What the design
+// does about it:
 //  * The digits are matrix A: one row per (input row m, digit t), m * T + t,
 //    64 rows a block (MB = 64 / T input rows: 4 at the 16 one-bit digits of
-//    the default spec, up to 16), values 0..2^dac_bits - 1 as u8.
-//  * A block owns 32 columns and walks the chunks (row group, slice) in
-//    order through a ring of four stages.  One warp loads: it waits until a
-//    stage is free, has the TMA copy the chunk's cells into it (a 3-D tensor
-//    map over (S, K, N), 32 columns x rows, zero-filled past N and K, 128 B
-//    swizzle; cp.async into the same layout where N is no multiple of 4),
-//    and for the first chunk of a row group it builds A from x into the
-//    stage itself, in the byte order the mma fragments want, while the copy
-//    is in flight.  Per-stage mbarriers (full, empty) replace block-wide
-//    barriers, so no warp waits on another's round.
+//    the default spec, up to 16), values 0..2^dac_bits - 1 as u8.  A group
+//    has at most 128 rows, so a u8 x u8 -> s32 sum of a row group stays
+//    below 128 * 255 * 255 < 2^31: every chunk's sums are exact.
+//  * Cell sources.  K3 (PAPER): the int32 codes of a row group are one chunk;
+//    a multiplying warp adds the bias and splits the words it needs into
+//    two byte planes once, then cuts each slice (wb >> s cell_bits) &
+//    cell_mask out of them in registers (cut_bytes) and issues one
+//    mma.m16n8k32 u8 a (row tile, k step, slice).  Its partials are exact
+//    (at most partial_max): no sample, no saturation.  K4: the cells of one
+//    (row group, slice) are a chunk; on the 2^-8 grid they are integers
+//    G = rint(256 g) <= 255 * 256, held as two byte planes G = 256 Gh + Gl,
+//    so p = sum_k digit_t(x_k) G_k = 256 (A Gh) + A Gl, and the ADC sample
+//    floor(p / 256 + 0.5) = (p + 128) >> 8 = A Gh + ((A Gl + 128) >> 8),
+//    exact in any order: two mma a (row tile, k step), then saturation at
+//    partial_max.
+//  * A block owns 32 columns and walks its chunks in order through a ring of
+//    four stages.  One warp loads: it waits until a stage is free, has the
+//    TMA copy the chunk into it (a 3-D tensor map over (S, K, N), or (1, K,
+//    N) for the codes, 32 columns x rows, zero-filled past N and K, 128 B
+//    swizzle; cp.async into the same layout where N is no multiple of 4 or
+//    the operand is not 16 B aligned), and for the first chunk of a row group
+//    builds A from x into the stage itself, in the byte order the mma
+//    fragments want, while the copy is in flight: a lane takes 16 rows of
+//    one input row, splits them into byte planes and cuts each digit out of
+//    them into one 16-byte unit of A.  (A lane a word of A, a table lookup a
+//    digit, kept the loading warp busy twice as long as the multiplying
+//    warps at K3's one chunk a row group.)  Per-stage mbarriers (full,
+//    empty) replace block-wide barriers, so no warp waits on another's round.
 //  * Eight warps multiply, each 32 A rows (two m16 tiles, their A fragments
-//    in registers for the S chunks of a row group) x 8 columns (one n8
-//    tile).  A warp turns the cells it needs into B fragments in registers
-//    straight from the staged floats (G in the mantissa of g * 256 + 1.5 *
-//    2^23, bytes picked with prmt), with the k order inside a 32-row step
-//    permuted so that the loads are conflict-free, and issues per step two
-//    mma.m16n8k32 u8 (Gh and Gl) a tile.  Nothing accumulates across chunks
-//    in the MMA: the s32 sums go straight to the epilogue in registers, where
-//    the fragment layout says which (t, column) each sum is: sample,
-//    saturate at partial_max, the (t, s) shift and detect from a table in
-//    shared memory, and the shift-add, in int32 across the slices of a row
-//    group where that cannot overflow (every spec with cells of 2 bits or
-//    more) and into one int64 per output the lane owns.  After the last
-//    chunk the warps meet in shared memory; a thread per output adds the T
-//    digit rows of its input row and requantizes.
+//    in registers for the chunks of a row group) x 8 columns (one n8 tile).
+//    A warp reads the staged words it needs straight into B fragments, with
+//    the k order inside a 32-row step permuted so that the loads are
+//    conflict-free.  K3's warps hold a whole row group in registers and give
+//    the stage back before they multiply.  Nothing accumulates across
+//    chunks in the MMA: the s32 sums go straight to the epilogue in
+//    registers, where the fragment layout says which (t, column) each sum
+//    is: the (t, s) shift and detect from a table in shared memory, and the
+//    shift-add, in int32 across the slices and row groups of the block where
+//    that cannot overflow (every spec with cells of 2 bits or more, up to
+//    128 row groups at the default spec), else into one int64 per output the
+//    lane owns.  The chunk loop is compiled once per (int32 shift-add,
+//    detect), so the epilogue decides neither per partial.  (Keeping the
+//    int64 sums out of the loop freed the registers that two blocks an SM
+//    leave, 96 a thread: no spills.)  After the last chunk the warps meet in
+//    shared memory; a thread per output adds the T digit rows of its input
+//    row and requantizes.
 //  * skip_zero_planes: a warp whose rows have no non-zero digit in a row
 //    group skips that group's products and epilogue (a zero partial changes
 //    nothing, so the output is the same either way).
-//  * Two blocks an SM (105 KB of shared memory each); a decode call of
+//  * Two blocks an SM (106 KB of shared memory each); a decode call of
 //    960 x 5120 is 160 blocks, more than one wave of 132 SMs.  Where the
 //    tiles leave the card idle (960 x 320: 10 blocks) K is split over the
 //    blocks of a thread-block cluster, as for fast_kernel: each block walks
 //    its share of the row groups and stores its sums into the shared memory
 //    of the cluster's first block, which requantizes.
-//
-// plane_kernel.  The TPU kernel carries a two-limb int32 accumulator in VMEM
-// across a sequential k grid axis and splits operands into halves and slices
-// so every dot stays exact in float32.  Here a lane owns one output column
-// for BM input rows and keeps one int64 accumulator per row in registers;
-// the warps of a block split the row groups and meet in shared memory for
-// the epilogue.  Ragged M/N/K edges are masked, nothing is padded (in every
-// kernel).  What bounds it on this card: integer instructions.  A column
-// conversion is a dot product of a {0..2^dac-1} input plane with 2-bit cell
-// slices over <= 128 rows; both operands are held as packed bit-planes (32
-// rows a word), so the dot product is a few AND + __popc per 32 rows instead
-// of 32 multiply-adds:
-//     sum_r plane_r * cell_r = sum_{i<dac} sum_{j<cell_bits} 2^(i+j) popc(xbit_i & cbit_j)
-// Input planes are packed with __ballot_sync as the codes are read; cell
-// planes are packed by each lane for its own column, one slice at a time,
-// into registers.  noisy_mma_kernel's form, with one u8 cell plane, is the
-// step that would bring it near its bound.
 //
 // Blocks of one column tile are neighbours in the grid (blockIdx.x walks the
 // row tiles), so a weight tile read by one is found in L2 by the next.
@@ -142,13 +144,9 @@
 #define MAX_TS 256      // n_iters * n_slices table entries
 #define NO_DETECT (-128)
 #define GEFF_FRAC_BITS 8
-#define BN 32           // output columns per block of the plane kernels
 #define FAST_WARPS 8    // warps of a fast_kernel block
 #define FAST_MAX_SPLITS 8  // blocks of a cluster that split K (portable cluster size)
 #define FOLD_ROWS 32768 // rows of K an int32 byte-plane accumulator may sum
-#define PW 8            // warps of a plane_kernel block; each owns row groups
-#define XB_MAX 24       // input bit-planes kept per row (n_iters * dac_bits)
-#define W32_MAX 4       // 32-row words per row group (rows <= 128)
 #define FULL_MASK 0xffffffffu
 
 struct VmmParams {
@@ -528,132 +526,9 @@ fast_kernel(const int* __restrict__ x, const int* __restrict__ w, int* __restric
   }
 }
 
-// Paper datapath: cells = int32 signed codes (K, N), cut into n_slices
-// cell_bits-wide slices of w + bias.  Warp wy owns the row groups wy, wy + PW,
-// ...; see the design note for the bit-plane form.
-template <int BM>
-__global__ void __launch_bounds__(BN * PW)
-plane_kernel(const int* __restrict__ x, const int* __restrict__ w, int* __restrict__ out,
-             const VmmParams p) {
-  constexpr int PBMAX = 8;  // bit-planes of one slice's cell values
-  __shared__ unsigned xb[PW][BM][XB_MAX][W32_MAX];  // packed input planes, per warp
-  __shared__ long long red_acc[PW][BM][BN];
-  __shared__ long long red_xsum[PW][BM];
-  __shared__ int red_flag[PW][BM][BN];
-  const int lane = threadIdx.x, wy = threadIdx.y;
-  const int n = blockIdx.y * BN + lane;
-  const int m0 = blockIdx.x * BM;
-  const int w32 = (p.rows + 31) / 32;
-  const int pb = p.cell_bits;
-  const int nxb = p.n_iters * p.dac_bits;
-  const int dmask = (1 << p.dac_bits) - 1, cmask = (1 << p.cell_bits) - 1;
-  const int bias = p.signed_weights ? (1 << (p.weight_bits - 1)) : 0;
-  long long acc[BM], xsum[BM];
-  bool flag[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) { acc[i] = 0; xsum[i] = 0; flag[i] = false; }
-
-  const int n_groups = (p.K + p.rows - 1) / p.rows;
-  for (int g = wy; g < n_groups; g += PW) {
-    const int k0 = g * p.rows;
-    const int kr = min(p.rows, p.K - k0);  // rows of a ragged last group
-
-    // input codes of this group -> packed bit-planes, row sums, non-zero bits
-    unsigned nz[BM];
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      nz[i] = 0;
-      for (int wi = 0; wi < w32; ++wi) {
-        const int r = wi * 32 + lane, m = m0 + i;
-        const int v = (m < p.M && r < kr) ? x[(size_t)m * p.K + k0 + r] : 0;
-        xsum[i] += __reduce_add_sync(FULL_MASK, v);
-        nz[i] |= __reduce_or_sync(FULL_MASK, (unsigned)v);
-        for (int b = 0; b < nxb; ++b) {
-          const unsigned word = __ballot_sync(FULL_MASK, (v >> b) & 1);
-          if (lane == 0) xb[wy][i][b][wi] = word;
-        }
-      }
-    }
-    __syncwarp();
-
-    for (int s = 0; s < p.n_slices; ++s) {
-      // this lane's column of slice s -> packed bit-planes in registers
-      unsigned cb[PBMAX][W32_MAX];
-#pragma unroll
-      for (int wi = 0; wi < W32_MAX; ++wi) {
-#pragma unroll
-        for (int j = 0; j < PBMAX; ++j) cb[j][wi] = 0;
-        if (wi < w32 && n < p.N) {
-          const int rmax = min(32, kr - wi * 32);
-#pragma unroll 4
-          for (int rr = 0; rr < rmax; ++rr) {
-            const int r = wi * 32 + rr;
-            const int wv = w[(size_t)(k0 + r) * p.N + n] + bias;
-            const unsigned c = (unsigned)((wv >> (s * p.cell_bits)) & cmask);
-#pragma unroll
-            for (int j = 0; j < PBMAX; ++j) cb[j][wi] |= ((c >> j) & 1u) << rr;
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < BM; ++i) {
-        for (int t = 0; t < p.n_iters; ++t) {
-          const int tsh = t * p.dac_bits;
-          // an all-zero input plane drives zero current into every bitline:
-          // its conversions are 0 and change nothing (bit-identical skip)
-          if (p.skip_zero_planes && ((nz[i] >> tsh) & dmask) == 0) continue;
-          int q = 0;
-          for (int ii = 0; ii < p.dac_bits; ++ii) {
-            unsigned xw[W32_MAX];
-#pragma unroll
-            for (int wi = 0; wi < W32_MAX; ++wi) xw[wi] = wi < w32 ? xb[wy][i][tsh + ii][wi] : 0u;
-#pragma unroll
-            for (int j = 0; j < PBMAX; ++j) {
-              if (j < pb) {
-                int cnt = 0;
-#pragma unroll
-                for (int wi = 0; wi < W32_MAX; ++wi) cnt += __popc(xw[wi] & cb[j][wi]);
-                q += cnt << (ii + j);
-              }
-            }
-          }
-          const int gsh = p.shift[t * p.n_slices + s];
-          const int d = p.detect[t * p.n_slices + s];
-          if (gsh > 0) q = ((q + (1 << (gsh - 1))) >> gsh) << gsh;
-          if (d != NO_DETECT && (q >> (d < 0 ? 0 : d)) > 0) flag[i] = true;
-          acc[i] += (long long)q << (tsh + s * p.cell_bits);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    red_acc[wy][i][lane] = acc[i];
-    red_flag[wy][i][lane] = flag[i];
-    if (lane == 0) red_xsum[wy][i] = xsum[i];
-  }
-  __syncthreads();
-  if (wy == 0 && n < p.N) {
-#pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      if (m0 + i >= p.M) break;
-      long long total = 0, xs = 0;
-      bool fl = false;
-      for (int q = 0; q < PW; ++q) {
-        total += red_acc[q][i][lane];
-        xs += red_xsum[q][i];
-        fl = fl || red_flag[q][i][lane];
-      }
-      out[(size_t)(m0 + i) * p.N + n] = requantize(total, xs, fl, p);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// noisy_mma_kernel (K4; see the note at the top)
+// paper_mma_kernel (K3) and noisy_mma_kernel (K4): one pipeline, mma_vmm<PAPER>
+// (see the note at the top)
 // ---------------------------------------------------------------------------
 
 #define NM_NB 32         // output columns a block
@@ -664,20 +539,22 @@ plane_kernel(const int* __restrict__ x, const int* __restrict__ w, int* __restri
 #define NM_THREADS ((NM_CONSUMERS + 1) * 32)
 #define NM_STAGES 4
 #define NM_LDA 144       // bytes a row of A: 4 k steps of 32 + 16, so fragment loads are conflict-free
+#define NM_MAX_CUTS 16   // digits (n_iters) or slices (n_slices) of a code of <= 16 bits
 
-constexpr int NM_CELLS = NM_KR * NM_NB * 4;  // float32 cells of a chunk: 128-B rows, 16-B units swizzled
+constexpr int NM_CELLS = NM_KR * NM_NB * 4;  // 4-byte cells of a chunk: 128-B rows, 16-B units swizzled
 constexpr int NM_APLANE = NM_RA * NM_LDA;    // a row group's digits, [A row][k step][fragment order]
 constexpr int NM_RED = NM_RA * NM_NB * 9;    // int64 sums + flag bytes after the loop
 constexpr int NM_RED_ALIGNED = (NM_RED + 127) / 128 * 128;
 // a K split's receive buffers in rank 0: sums, sums of x, flags of every rank
 constexpr int NM_RECV = FAST_MAX_SPLITS * (NM_MB * NM_NB * 9 + NM_MB * 8);
-constexpr int NM_SMEM = 1024 + NM_STAGES * (NM_CELLS + NM_APLANE) + 2 * NM_STAGES * 8 + NM_MB * 8 + MAX_TS * 16;
+constexpr int NM_SMEM =
+    1024 + NM_STAGES * (NM_CELLS + NM_APLANE) + 2 * NM_STAGES * 8 + NM_MB * 8 + (MAX_TS + 2 * NM_MAX_CUTS) * 16;
 static_assert(NM_CELLS % 1024 == 0, "cell stages keep the 1024 B alignment of the 128 B swizzle");
 static_assert(NM_RED_ALIGNED + NM_RECV <= NM_STAGES * NM_CELLS, "the epilogue's sums fit in the cell stages");
 static_assert(2 * (NM_SMEM + 1024) <= 233472, "two blocks fit on an SM");
 static_assert(NM_RA == 32 * (NM_CONSUMERS / 4) && NM_NB == 8 * 4, "a warp owns 32 A rows x 8 columns");
 // a column partial of one row group is at most 128 * 255 * 255 < 2^31 on
-// either byte plane: the s32 sums of one chunk are exact
+// any byte plane: the s32 sums of one chunk are exact
 static_assert(NM_KR * 255LL * 255LL < (1LL << 31), "an s32 chunk sum must stay exact");
 
 // D += A (16 x 32 u8, row) * B (32 x 8 u8, col), s32 accumulators
@@ -753,23 +630,55 @@ __device__ __forceinline__ unsigned grid_code(float g) {
   return __float_as_uint(fmaf(g, (float)(1 << GEFF_FRAC_BITS), 12582912.0f));
 }
 
-// Device-perturbed datapath: cells = float32 effective cell codes (S, K, N)
-// in [0, 2^cell_bits - 1] on the 2^-8 grid.  Grid (row blocks of MB input
-// rows, column tiles of NM_NB); NM_CONSUMERS warps multiply, warp
-// NM_CONSUMERS loads.  Chunk c is (row group c / S, slice c % S).  Stage st
-// holds a chunk's cells as 128 rows of 32 floats, the 16-B units of row r
-// at unit ^ (r & 7) (the tensor map's 128 B swizzle), and, for the first
-// chunk of a row group, the group's digit matrix A, which the loading warp
-// builds from x.  The cells come in by TMA where N is a multiple of 4 and
-// g_eff is 16 B aligned (use_tma), else by cp.async into the same layout.
+// Byte lane i of (lo, hi) holds a 16-bit value v_i as two planes, bits 0-7
+// in lo and 8-15 in hi (split_bytes).  cut_of(sh, mask) describes the field
+// (v >> sh) & mask, mask < 256, as {sh, the mask of its bits that come from
+// lo, of those from hi}, each repeated in the four lanes; cut_bytes cuts it
+// out of all four lanes at once.  Bits of v above 15 are 0, so a field that
+// reaches past bit 15 keeps only the bits below it.
+__device__ __forceinline__ int4 cut_of(int sh, unsigned mask) {
+  if (sh >= 16) return make_int4(0, 0, 0, 0);
+  mask &= (1u << (16 - sh)) - 1;
+  const unsigned from_lo = sh < 8 ? mask & ((1u << (8 - sh)) - 1) : 0u;
+  return make_int4(sh, (int)(from_lo * 0x01010101u), (int)((mask ^ from_lo) * 0x01010101u), 0);
+}
+
+__device__ __forceinline__ unsigned cut_lo(unsigned lo, const int4& c) { return (lo >> c.x) & (unsigned)c.y; }
+__device__ __forceinline__ unsigned cut_hi(unsigned hi, const int4& c) { return (hi >> (c.x - 8)) & (unsigned)c.z; }
+// the field straddles the planes: bits below 8 - sh from lo, the rest from hi
+__device__ __forceinline__ unsigned cut_both(unsigned lo, unsigned hi, const int4& c) {
+  return ((lo >> c.x) & (unsigned)c.y) | ((hi << (8 - c.x)) & (unsigned)c.z);
+}
+__device__ __forceinline__ unsigned cut_bytes(unsigned lo, unsigned hi, const int4& c) {
+  if (c.z == 0) return cut_lo(lo, c);
+  if (c.y == 0) return cut_hi(hi, c);
+  return cut_both(lo, hi, c);
+}
+
+// a compile-time choice handed to a generic lambda
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// Grid (row blocks of MB input rows, column tiles of NM_NB, K splits);
+// NM_CONSUMERS warps multiply, warp NM_CONSUMERS loads.  PAPER: cells are
+// the (K, N) int32 codes and a chunk is a row group; else cells are the
+// (S, K, N) float32 effective cells and chunk c is (row group c / S, slice
+// c % S).  Stage st holds a chunk as 128 rows of 32 4-byte cells, the 16-B
+// units of row r at unit ^ (r & 7) (the tensor map's 128 B swizzle), and,
+// for the first chunk of a row group, the group's digit matrix A, which the
+// loading warp builds from x.  The cells come in by TMA where use_tma, else
+// by cp.async into the same layout.
 //
 // The k order inside a 32-row step is permuted (the sum does not care):
 // byte i of the fragment registers b0, a0, a1 is physical row 8 (i >> 1) +
 // 2 tig + (i & 1) of the step, of b1, a2, a3 the same + 16.  Then for each
 // i the 32 lanes of a warp read 32 different banks of the swizzled cells.
-__global__ void __launch_bounds__(NM_THREADS, 2)
-noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int* __restrict__ out,
-                 const VmmParams p, const __grid_constant__ CUtensorMap cells_map, const int use_tma) {
+template <bool PAPER>
+__device__ __forceinline__ void mma_vmm(const int* __restrict__ x, const unsigned* __restrict__ cells_g,
+                                        int* __restrict__ out, const VmmParams& p, const CUtensorMap* cells_map,
+                                        const int use_tma) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* aplanes = smem + NM_STAGES * NM_CELLS;
@@ -777,10 +686,13 @@ noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int
   uint64_t* empty = full + NM_STAGES;                              // every consumer warp is done with it
   long long* xsum = (long long*)(empty + NM_STAGES);
   int4* table = (int4*)(xsum + NM_MB);  // [s][t]: round-half-up add, keep mask, detect limit
+  int4* xcut = table + MAX_TS;          // [t]: digit t of x (cut_of)
+  int4* wcut = xcut + NM_MAX_CUTS;      // [s]: slice s of w + bias (PAPER)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
   const int T = p.n_iters, S = p.n_slices, dac = p.dac_bits;
+  const int CPG = PAPER ? 1 : S;  // chunks a row group
   const int MB = min(NM_MB, NM_RA / T);
   const int m0 = blockIdx.x * MB, n0 = blockIdx.y * NM_NB;
   const int mrows = min(MB, p.M - m0);
@@ -788,14 +700,15 @@ noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int
   // tile in one cluster (rank blockIdx.z)
   const int n_groups = (p.K + p.rows - 1) / p.rows, gps = (n_groups + gridDim.z - 1) / gridDim.z;
   const int g_begin = blockIdx.z * gps, g_end = min(n_groups, g_begin + gps);
-  const int nc = (g_end - g_begin) * S;
+  const int nc = (g_end - g_begin) * CPG;
   const int box_rows = p.rows;  // rows of a stage the loads write; the rest stay 0
 
-  // within a row group the shift-add runs in int32 where it cannot overflow:
-  // a rounded partial is below 2 * partial_max
+  // the shift-add over the slices of this block's row groups runs in int32
+  // where it cannot overflow (a rounded partial is below 2 * partial_max);
+  // the digit shift t * dac_bits is applied in int64 after the loop
   long long bound = 0;
   for (int q = 0; q < S; ++q) bound += (2LL * p.partial_max) << (q * p.cell_bits);
-  const bool narrow = bound < (1LL << 31);
+  const bool narrow = bound < (1LL << 31) / max(1, g_end - g_begin);
 
   bool detects = false;
   for (int q = tid; q < T * S; q += NM_THREADS) {  // q = t * S + s -> table[s * T + t]
@@ -804,6 +717,8 @@ noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int
                                          (d == NO_DETECT || d >= 31) ? 0x7fffffff : 1 << max(d, 0), 0);
     detects = detects || d != NO_DETECT;
   }
+  if (tid < T) xcut[tid] = cut_of(tid * dac, (1u << dac) - 1);
+  if (PAPER && tid >= 32 && tid - 32 < S) wcut[tid - 32] = cut_of((tid - 32) * p.cell_bits, (1u << p.cell_bits) - 1);
   for (int q = tid; q < NM_STAGES * (NM_KR - box_rows) * (NM_NB / 4); q += NM_THREADS) {
     const int st = q / ((NM_KR - box_rows) * (NM_NB / 4)), r = q % ((NM_KR - box_rows) * (NM_NB / 4));
     *(int4*)(smem + st * NM_CELLS + box_rows * 128 + r * 16) = make_int4(0, 0, 0, 0);
@@ -836,10 +751,12 @@ noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int
 
   if (warp == NM_CONSUMERS) {
     // ---- the loading warp ----
-    const unsigned xmask = (1u << p.input_bits) - 1, dmask = (1u << dac) - 1;
-    // lane: k step lane >> 3, word lane & 7 of a row's 32 bytes there; the
-    // word holds physical rows kb, kb + 1, kb + 8, kb + 9 of the step
-    const int kb = 32 * (lane >> 3) + 16 * ((lane >> 2) & 1) + 2 * (lane & 3);
+    const unsigned xmask = (1u << p.input_bits) - 1;
+    const bool vec_x = p.K % 4 == 0 && (uintptr_t)x % 16 == 0;
+    // dac_bits of 1, 2, 4 or 8: digit t is (plane >> (t dac % 8)) & dac_mask
+    // of one byte plane (t dac < 16: input codes have at most 16 bits)
+    const bool byte_digits = 8 % dac == 0;
+    const unsigned drep = ((1u << dac) - 1) * 0x01010101u;
     int g = g_begin, s = 0, st = 0;
     unsigned phase = 0;
     for (int c = 0; c < nc; ++c) {
@@ -849,43 +766,73 @@ noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int
       if (use_tma) {
         if (lane == 0) {
           mbar_expect_tx(&full[st], box_rows * NM_NB * 4);
-          tma_load_3d(cells, &cells_map, n0, k0, s, &full[st]);
+          tma_load_3d(cells, cells_map, n0, k0, s, &full[st]);
         }
       } else {
-        const float* src = g_eff + ((size_t)s * p.K + k0) * p.N + n0;
+        const unsigned* src = cells_g + ((size_t)s * p.K + k0) * p.N + n0;
         for (int q = lane; q < box_rows * NM_NB; q += 32) {
           const int kk = q >> 5, cc = q & 31;
           const bool ok = kk < kr && n0 + cc < p.N;
           cp_async4(cells + kk * 128 + ((((cc >> 2) ^ (kk & 7)) << 4) | ((cc & 3) << 2)),
-                    ok ? src + (size_t)kk * p.N + cc : g_eff, ok);
+                    ok ? src + (size_t)kk * p.N + cc : cells_g, ok);
         }
         cp_async_arrive(&full[st]);
       }
       if (s == 0) {
-        // the group's digits: A[m * T + t][step][word] = four digit-t bytes
-        unsigned char* A = aplanes + st * NM_APLANE + 4 * lane;
-        for (int m = 0; m < MB; ++m) {
-          unsigned cw[4] = {0, 0, 0, 0};
-          if (m < mrows) {
-            const int* xr = x + (size_t)(m0 + m) * p.K + k0;
+        // the group's digits, four input rows a pass.  Lane (row m, step,
+        // half) takes the 16 rows 32 step + 16 half .. + 15 of input row m;
+        // digit t of them is the 16-byte unit of A row m * T + t there, word
+        // q holding rows 2q, 2q + 1, 2q + 8, 2q + 9 (the fragment order)
+        const int lm = lane >> 3, kk = 32 * ((lane >> 1) & 3) + 16 * (lane & 1);
+        unsigned char* A = aplanes + st * NM_APLANE + kk;
+        const bool vec = vec_x && k0 % 4 == 0 && kk + 16 <= kr;
+        for (int mp = 0; mp < MB; mp += 4) {
+          const int m = mp + lm;
+          const int* xr = x + (size_t)(m0 + m) * p.K + k0 + kk;
+          unsigned v[16];
+          if (m < mrows && vec) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int k = kb + 8 * (i >> 1) + (i & 1);
-              cw[i] = k < kr ? (unsigned)xr[k] : 0u;
+              const int4 q = *(const int4*)(xr + 4 * i);
+              v[4 * i] = q.x, v[4 * i + 1] = q.y, v[4 * i + 2] = q.z, v[4 * i + 3] = q.w;
             }
-            const int part = __reduce_add_sync(FULL_MASK, (int)(cw[0] + cw[1] + cw[2] + cw[3]));
-            if (lane == 0) xsum[m] += part;
+          } else {
+#pragma unroll
+            for (int i = 0; i < 16; ++i) v[i] = (m < mrows && kk + i < kr) ? (unsigned)xr[i] : 0u;
           }
-          for (int t = 0; t < T; ++t) {
-            const int sh = t * dac;
-            *(unsigned*)(A + (m * T + t) * NM_LDA) =
-                ((cw[0] & xmask) >> sh & dmask) | ((cw[1] & xmask) >> sh & dmask) << 8 |
-                ((cw[2] & xmask) >> sh & dmask) << 16 | ((cw[3] & xmask) >> sh & dmask) << 24;
+          int sum = 0;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) sum += (int)v[i];
+#pragma unroll
+          for (int d = 1; d < 8; d <<= 1) sum += __shfl_xor_sync(FULL_MASK, sum, d);
+          if ((lane & 7) == 0 && m < mrows) xsum[m] += sum;
+          unsigned lo[4], hi[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            split_bytes(v[2 * q] & xmask, v[2 * q + 1] & xmask, v[2 * q + 8] & xmask, v[2 * q + 9] & xmask, lo[q],
+                        hi[q]);
+          if (m < MB) {
+            unsigned char* Am = A + m * T * NM_LDA;
+            if (byte_digits) {  // a digit never straddles the byte planes
+#pragma unroll 4
+              for (int t = 0; t < T; ++t) {
+                const int sh = t * dac;
+                const unsigned* src = sh < 8 ? lo : hi;
+                *(uint4*)(Am + t * NM_LDA) = make_uint4((src[0] >> (sh & 7)) & drep, (src[1] >> (sh & 7)) & drep,
+                                                        (src[2] >> (sh & 7)) & drep, (src[3] >> (sh & 7)) & drep);
+              }
+            } else {
+              for (int t = 0; t < T; ++t) {
+                const int4 cut = xcut[t];
+                *(uint4*)(Am + t * NM_LDA) = make_uint4(cut_bytes(lo[0], hi[0], cut), cut_bytes(lo[1], hi[1], cut),
+                                                        cut_bytes(lo[2], hi[2], cut), cut_bytes(lo[3], hi[3], cut));
+              }
+            }
           }
         }
       }
       mbar_arrive(&full[st]);
-      if (++s == S) { s = 0; ++g; }
+      if (++s == CPG) { s = 0; ++g; }
       if (++st == NM_STAGES) { st = 0; phase ^= 1; }
     }
   } else {
@@ -903,101 +850,178 @@ noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int
       const int r = 2 * tig + b;  // physical row mod 8
       cell_off[b] = r * 128 + ((((n >> 2) ^ r)) << 4) + ((n & 3) << 2);
     }
+    // word i of k step k of the staged chunk: physical row 32 k + 8 (i >> 1)
+    // + 2 tig + (i & 1) of column n (fragment byte order)
+    auto word = [&](const unsigned char* cells, int k, int i) {
+      return *(const unsigned*)(cells + cell_off[i & 1] + (32 * k + 8 * (i >> 1)) * 128);
+    };
     unsigned a[2][4][4];  // [row tile][k step][fragment register] of the current row group
-    int part[2][4];       // sum_s q_s << (s * cell_bits) of the current row group (narrow)
+    int part[2][4];       // sum over row groups and s of q_s << (s * cell_bits) (narrow)
 #pragma unroll
     for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[rt][e] = 0;
     bool live = false;
 
-    int g = g_begin, s = 0, st = 0;
-    unsigned phase = 0;
-    for (int c = 0; c < nc; ++c) {
-      mbar_wait(&full[st], phase);
-      const unsigned char* cells = smem + st * NM_CELLS;
-      const int ksteps = (min(p.rows, p.K - g * p.rows) + 31) >> 5;
-      if (s == 0) {
-        const unsigned char* A = aplanes + st * NM_APLANE + (32 * h + gid) * NM_LDA + 4 * tig;
-        bool any = false;
+    // the stage's reads are done: the next TMA into it may not pass them
+    auto release = [&](int st) {
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    };
+    // the table rows of this lane's outputs ([rt][e2]; slice sl at + sl * T)
+    const int4* trow[2][2];
 #pragma unroll
-        for (int rt = 0; rt < 2; ++rt) {
+    for (int rt = 0; rt < 2; ++rt)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-#pragma unroll
-            for (int f = 0; f < 4; ++f) {
-              // a0, a1, a2, a3: rows +0, +8, +0, +8; bytes +0, +0, +16, +16
-              a[rt][k][f] = *(const unsigned*)(A + (16 * rt + 8 * (f & 1)) * NM_LDA + 32 * k + 16 * (f >> 1));
-              any = any || a[rt][k][f] != 0;
-            }
-          }
-        }
-        live = __any_sync(FULL_MASK, any) || !p.skip_zero_planes;
-      }
-      if (live) {
-        int acc_lo[2][4], acc_hi[2][4];
-#pragma unroll
-        for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc_lo[rt][e] = acc_hi[rt][e] = 0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (k < ksteps) {
-            unsigned G[8];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-#pragma unroll
-              for (int b = 0; b < 2; ++b)
-                G[2 * q + b] = grid_code(*(const float*)(cells + cell_off[b] + (32 * k + 8 * q) * 128));
-            }
-            unsigned b0_lo, b0_hi, b1_lo, b1_hi;
-            split_bytes(G[0], G[1], G[2], G[3], b0_lo, b0_hi);
-            split_bytes(G[4], G[5], G[6], G[7], b1_lo, b1_hi);
-#pragma unroll
-            for (int rt = 0; rt < 2; ++rt) {
-              mma_u8(acc_lo[rt], a[rt][k], b0_lo, b1_lo);
-              mma_u8(acc_hi[rt], a[rt][k], b0_hi, b1_hi);
-            }
-          }
-        }
-        // ADC sample floor(sum g + 0.5) = (256 hi + lo + 128) >> 8 = hi +
-        // ((lo + 128) >> 8), saturated; the (t, s) tables; the shift-add
-        const int scb = s * p.cell_bits;
+      for (int e2 = 0; e2 < 2; ++e2) trow[rt][e2] = table + row_t[rt][e2];
+
+    // the chunk loop, one copy per (int32 shift-add, detect): the epilogue
+    // runs once per partial, so neither is decided there
+    auto run = [&](auto narrow_c, auto detect_c) {
+      constexpr bool NARROW = decltype(narrow_c)::value, DETECT = decltype(detect_c)::value;
+      // the partials q of slice sl of this lane's outputs: the (t, s) tables
+      // (round-half-up shift, detect), the shift-add
+      auto take = [&](const int (&q)[2][4], int sl) {
+        const int scb = sl * p.cell_bits;
 #pragma unroll
         for (int rt = 0; rt < 2; ++rt) {
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
-            const int4 tab = table[s * T + row_t[rt][e2]];  // half, keep mask, detect limit
+            const int4 tab = trow[rt][e2][sl * T];  // half, keep mask, detect limit
 #pragma unroll
             for (int e1 = 0; e1 < 2; ++e1) {
               const int e = 2 * e2 + e1;
-              int q = min(acc_hi[rt][e] + ((acc_lo[rt][e] + (1 << (GEFF_FRAC_BITS - 1))) >> GEFF_FRAC_BITS),
-                          p.partial_max);
-              q = (q + tab.x) & tab.y;
-              if (has_detect && q >= tab.z) flags |= 1u << (4 * rt + e);
-              if (narrow)
-                part[rt][e] += q << scb;
+              const int v = (q[rt][e] + tab.x) & tab.y;
+              if constexpr (DETECT) {
+                if (v >= tab.z) flags |= 1u << (4 * rt + e);
+              }
+              if constexpr (NARROW)
+                part[rt][e] += v << scb;
               else
-                wide[rt][e] += (long long)q << (row_t[rt][e2] * dac + scb);
+                wide[rt][e] += (long long)v << (row_t[rt][e2] * dac + scb);
             }
           }
         }
-      }
-      if (narrow && s == S - 1) {
+      };
+      int g = g_begin, s = 0, st = 0;
+      unsigned phase = 0;
+      for (int c = 0; c < nc; ++c) {
+        mbar_wait(&full[st], phase);
+        const unsigned char* cells = smem + st * NM_CELLS;
+        if (s == 0) {
+          const unsigned char* A = aplanes + st * NM_APLANE + (32 * h + gid) * NM_LDA + 4 * tig;
+          bool any = false;
 #pragma unroll
-        for (int rt = 0; rt < 2; ++rt) {
+          for (int rt = 0; rt < 2; ++rt) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            wide[rt][e] += (long long)part[rt][e] << (row_t[rt][e >> 1] * dac);
-            part[rt][e] = 0;
+            for (int k = 0; k < 4; ++k) {
+#pragma unroll
+              for (int f = 0; f < 4; ++f) {
+                // a0, a1, a2, a3: rows +0, +8, +0, +8; bytes +0, +0, +16, +16
+                a[rt][k][f] = *(const unsigned*)(A + (16 * rt + 8 * (f & 1)) * NM_LDA + 32 * k + 16 * (f >> 1));
+                any = any || a[rt][k][f] != 0;
+              }
+            }
           }
+          live = __any_sync(FULL_MASK, any) || !p.skip_zero_planes;
         }
+        if constexpr (PAPER) {
+          // the row group's codes: wb = w + bias < 2^16 in two byte planes,
+          // [k step][b0 / b1], then the stage goes back to the loading warp
+          const unsigned bias = p.signed_weights ? 1u << (p.weight_bits - 1) : 0u;
+          unsigned lo[4][2], hi[4][2];
+          if (live) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+#pragma unroll
+              for (int b = 0; b < 2; ++b)
+                split_bytes(word(cells, k, 4 * b) + bias, word(cells, k, 4 * b + 1) + bias,
+                            word(cells, k, 4 * b + 2) + bias, word(cells, k, 4 * b + 3) + bias, lo[k][b], hi[k][b]);
+            }
+          }
+          release(st);
+          if (live) {
+            for (int sl = 0; sl < S; ++sl) {
+              const int4 cut = wcut[sl];
+              int acc[2][4] = {};
+              // one u8 product a (row tile, k step); the slice's B fragments
+              // cut from the byte planes (the branch is the same for the warp).
+              // Rows past the end of K are 0 in A: every k step is multiplied
+              auto products = [&](auto cut_planes) {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                  const unsigned b0 = cut_planes(lo[k][0], hi[k][0]), b1 = cut_planes(lo[k][1], hi[k][1]);
+#pragma unroll
+                  for (int rt = 0; rt < 2; ++rt) mma_u8(acc[rt], a[rt][k], b0, b1);
+                }
+              };
+              if (cut.z == 0)
+                products([&](unsigned l, unsigned) { return cut_lo(l, cut); });
+              else if (cut.y == 0)
+                products([&](unsigned, unsigned u) { return cut_hi(u, cut); });
+              else
+                products([&](unsigned l, unsigned u) { return cut_both(l, u, cut); });
+              take(acc, sl);  // exact partials: no sample, no saturation
+            }
+          }
+        } else {
+          if (live) {
+            const int ksteps = (min(p.rows, p.K - g * p.rows) + 31) >> 5;
+            int acc_lo[2][4], acc_hi[2][4];
+#pragma unroll
+            for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc_lo[rt][e] = acc_hi[rt][e] = 0;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (k < ksteps) {
+                unsigned G[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) G[i] = grid_code(__uint_as_float(word(cells, k, i)));
+                unsigned b0_lo, b0_hi, b1_lo, b1_hi;
+                split_bytes(G[0], G[1], G[2], G[3], b0_lo, b0_hi);
+                split_bytes(G[4], G[5], G[6], G[7], b1_lo, b1_hi);
+#pragma unroll
+                for (int rt = 0; rt < 2; ++rt) {
+                  mma_u8(acc_lo[rt], a[rt][k], b0_lo, b1_lo);
+                  mma_u8(acc_hi[rt], a[rt][k], b0_hi, b1_hi);
+                }
+              }
+            }
+            // ADC sample floor(sum g + 0.5) = (256 hi + lo + 128) >> 8 = hi +
+            // ((lo + 128) >> 8), saturated at partial_max
+            int q[2][4];
+#pragma unroll
+            for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                q[rt][e] = min(acc_hi[rt][e] + ((acc_lo[rt][e] + (1 << (GEFF_FRAC_BITS - 1))) >> GEFF_FRAC_BITS),
+                               p.partial_max);
+            take(q, s);
+          }
+          release(st);
+        }
+        if (++s == CPG) { s = 0; ++g; }
+        if (++st == NM_STAGES) { st = 0; phase ^= 1; }
       }
-      fence_proxy_async();  // the stage is read: the next TMA into it may not pass those reads
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[st]);
-      if (++s == S) { s = 0; ++g; }
-      if (++st == NM_STAGES) { st = 0; phase ^= 1; }
+      if constexpr (NARROW) {
+#pragma unroll
+        for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) wide[rt][e] = (long long)part[rt][e] << (row_t[rt][e >> 1] * dac);
+      }
+    };
+    if (narrow) {
+      if (has_detect)
+        run(Flag<true>(), Flag<true>());
+      else
+        run(Flag<true>(), Flag<false>());
+    } else {
+      if (has_detect)
+        run(Flag<false>(), Flag<true>());
+      else
+        run(Flag<false>(), Flag<false>());
     }
   }
   __syncthreads();  // every warp is past the stages: they hold the sums now
@@ -1080,6 +1104,18 @@ noisy_mma_kernel(const int* __restrict__ x, const float* __restrict__ g_eff, int
   }
 }
 
+__global__ void __launch_bounds__(NM_THREADS, 2)
+paper_mma_kernel(const int* __restrict__ x, const unsigned* __restrict__ codes, int* __restrict__ out,
+                 const VmmParams p, const __grid_constant__ CUtensorMap cells_map, const int use_tma) {
+  mma_vmm<true>(x, codes, out, p, &cells_map, use_tma);
+}
+
+__global__ void __launch_bounds__(NM_THREADS, 2)
+noisy_mma_kernel(const int* __restrict__ x, const unsigned* __restrict__ g_eff, int* __restrict__ out,
+                 const VmmParams p, const __grid_constant__ CUtensorMap cells_map, const int use_tma) {
+  mma_vmm<false>(x, g_eff, out, p, &cells_map, use_tma);
+}
+
 // SMs of the current device (looked up once per device)
 static int sm_count() {
   static int count[64] = {0};
@@ -1132,23 +1168,24 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-static int launch_noisy(const void* x, const void* g_eff, void* out, const VmmParams& p,
-                        cudaStream_t stream) {
+template <bool PAPER>
+static int launch_mma(const void* x, const void* cells, void* out, const VmmParams& p, cudaStream_t stream) {
   const int MB = min(NM_MB, NM_RA / p.n_iters);
   CUtensorMap map;
   memset(&map, 0, sizeof map);
-  const int use_tma = p.N % 4 == 0 && (uintptr_t)g_eff % 16 == 0;
+  const int use_tma = p.N % 4 == 0 && (uintptr_t)cells % 16 == 0;
   if (use_tma) {
-    // (S, K, N) float32, N innermost; a box is 32 columns x rows x 1 slice,
-    // zero-filled past N and K
+    // (S, K, N) float32 cells or (1, K, N) int32 codes, N innermost; a box
+    // is 32 columns x rows x 1 slice, zero-filled past N and K
     const EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.K, (cuuint64_t)p.n_slices};
+    const cuuint64_t dims[3] = {(cuuint64_t)p.N, (cuuint64_t)p.K, (cuuint64_t)(PAPER ? 1 : p.n_slices)};
     const cuuint64_t strides[2] = {(cuuint64_t)p.N * 4, (cuuint64_t)p.K * p.N * 4};
     const cuuint32_t box[3] = {NM_NB, (cuuint32_t)p.rows, 1}, elem[3] = {1, 1, 1};
-    const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(g_eff), dims, strides,
-                              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    const CUresult r = encode(&map, PAPER ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                              const_cast<void*>(cells), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   }
   // where the tiles leave room on the card (two blocks an SM), K is split
@@ -1159,22 +1196,8 @@ static int launch_noisy(const void* x, const void* g_eff, void* out, const VmmPa
   int splits = max(1, min(min(2 * sm_count() / (int)(tiles.x * tiles.y), n_groups), FAST_MAX_SPLITS));
   const int gps = (n_groups + splits - 1) / splits;
   splits = (n_groups + gps - 1) / gps;
-  return launch_split(noisy_mma_kernel, tiles, splits, NM_THREADS, NM_SMEM, stream, (const int*)x,
-                      (const float*)g_eff, (int*)out, p, map, use_tma);
-}
-
-// BM = 4 shares each packed cell column among four input rows; at small
-// grids BM = 1 gives the card four times the blocks instead.
-static bool wide_rows(const VmmParams& p) {
-  return p.M >= 4 && (long long)((p.M + 3) / 4) * ((p.N + BN - 1) / BN) >= 132;
-}
-
-template <int BM>
-static int launch_plane(const void* x, const void* w, void* out, const VmmParams& p,
-                        cudaStream_t stream) {
-  dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN), block(BN, PW);
-  plane_kernel<BM><<<grid, block, 0, stream>>>((const int*)x, (const int*)w, (int*)out, p);
-  return (int)cudaGetLastError();
+  return launch_split(PAPER ? paper_mma_kernel : noisy_mma_kernel, tiles, splits, NM_THREADS, NM_SMEM, stream,
+                      (const int*)x, (const unsigned*)cells, (int*)out, p, map, use_tma);
 }
 
 // All rows of a block share each weight read; dynamic shared memory sized
@@ -1206,16 +1229,15 @@ int crossbar_vmm_fast(const void* x, const void* w, void* out, const VmmParams* 
   return p->M <= 8 ? launch_fast<FastDecode>(x, w, out, *p, st) : launch_fast<FastPrefill>(x, w, out, *p, st);
 }
 
+// The paper datapath under the static ADC tables of p.
 int crossbar_vmm_planes(const void* x, const void* w, void* out, const VmmParams* p, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return wide_rows(*p) ? launch_plane<4>(x, w, out, *p, st) : launch_plane<1>(x, w, out, *p, st);
+  return launch_mma<true>(x, w, out, *p, (cudaStream_t)stream);
 }
 
 // g_eff (S, K, N) float32 effective cell codes in [0, 2^cell_bits - 1] on the
 // 2^-8 grid.
 int noisy_vmm_planes(const void* x, const void* g_eff, void* out, const VmmParams* p, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return launch_noisy(x, g_eff, out, *p, st);
+  return launch_mma<false>(x, g_eff, out, *p, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 
 ``noisy_vmm_cuda`` is the counterpart of ``repro.kernels.noisy_vmm.
 noisy_vmm_pallas`` and replaces the TPU kernel ``_noisy_kernel`` with
-``noisy_mma_kernel`` of ``csrc/crossbar_vmm.cu`` (the design note is there):
+``noisy_mma_kernel`` of ``csrc/crossbar_vmm.cu`` (the design note is there;
+it shares its pipeline with the paper-datapath kernel of ``crossbar_vmm``):
 the weight operand is the (S, K, N) float32 effective-cell-code array of
 ``repro_torch.device``; each column partial is ``clip(floor(digit . g_eff[s]
 + 0.5), 0, partial_max)``, then the ADC tables, shift-add and epilogue of the

@@ -98,10 +98,11 @@ def test_two_byte_plane_identity(spec_name, cells):
 def _emulate(x, g, spec, adc_cfg, skip_zero_planes=True):
     """The kernel's algorithm in int64: blocks of MB input rows (A rows m * T +
     t, 64 a block), per (row group, slice) two byte-plane products, the ADC
-    sample and saturation, the (t, s) tables, the shift-add (within a row
-    group in int32 where the kernel's bound admits it, checked here), then
-    the sum over the T digit rows and the requantization.  A warp's 32 A
-    rows skip a row group in which all of them are zero."""
+    sample and saturation, the (t, s) tables, the shift-add over the slices
+    and row groups (in int32 where the kernel's bound admits it, checked
+    here; K not split over a cluster), the digit shift, then the sum over the
+    T digit rows and the requantization.  A warp's 32 A rows skip a row group
+    in which all of them are zero."""
     T, S = spec.n_iters, spec.n_slices
     MB = min(16, A_ROWS // T)
     shifts, detects = tadc.schedule_tables(spec, adc_cfg)
@@ -113,19 +114,19 @@ def _emulate(x, g, spec, adc_cfg, skip_zero_planes=True):
     out = torch.empty((M, N), dtype=torch.int32)
     t_of_row = torch.arange(A_ROWS) % T
     # the kernel's int32 bound: a rounded partial is below 2 * partial_max
-    narrow = sum((2 * spec.partial_max) << (s * spec.cell_bits) for s in range(S)) < 1 << 31
+    groups = -(-K // spec.rows)
+    narrow = sum((2 * spec.partial_max) << (s * spec.cell_bits) for s in range(S)) < (1 << 31) // groups
     for m0 in range(0, M, MB):
         mr = min(MB, M - m0)
         a_blk = torch.zeros((A_ROWS, K), dtype=torch.int64)
         a_blk[: mr * T] = A[m0:m0 + mr].reshape(mr * T, K)
-        acc = torch.zeros((A_ROWS, N), dtype=torch.int64)
+        part = torch.zeros((A_ROWS, N), dtype=torch.int64)
         flag = torch.zeros((A_ROWS, N), dtype=torch.bool)
         for k0 in range(0, K, spec.rows):
             a = a_blk[:, k0:k0 + spec.rows]
             live = torch.ones((A_ROWS, 1), dtype=torch.bool)
             if skip_zero_planes:
                 live = (a != 0).any(dim=1).reshape(-1, 32).any(dim=1).repeat_interleave(32)[:, None]
-            part = torch.zeros_like(acc)
             for s in range(S):
                 hi = a @ Gh[s, k0:k0 + spec.rows]
                 lo = a @ Gl[s, k0:k0 + spec.rows]
@@ -138,9 +139,9 @@ def _emulate(x, g, spec, adc_cfg, skip_zero_planes=True):
                 dpos = torch.tensor([max(d, 0) if d is not None else 0 for d in det])[:, None]
                 flag |= live & on & ((q >> dpos) > 0)
                 part += torch.where(live, q << (s * spec.cell_bits), 0)
-            if narrow:
-                assert int(part.max()) < 1 << 31
-            acc += part << (t_of_row * spec.dac_bits)[:, None]
+        if narrow:
+            assert int(part.max()) < 1 << 31
+        acc = part << (t_of_row * spec.dac_bits)[:, None]
         total = acc[: mr * T].reshape(mr, T, N).sum(dim=1)
         fl = flag[: mr * T].reshape(mr, T, N).any(dim=1)
         if spec.signed_weights:
@@ -243,9 +244,10 @@ def test_kernel_emulation_int64_path_matches_plain(cfg_name):
 
 @pytest.mark.parametrize("spec_name,narrow", [("default", True), ("cell4dac2", True), ("w8a8", True), ("cell1dac8", False)])
 def test_int32_shift_add_bound(spec_name, narrow):
-    """The kernel shift-adds the slices of a row group in int32 where
-    sum_s 2 partial_max << (s cell_bits) < 2**31 (a rounded partial stays
-    below 2 partial_max), and in int64 otherwise."""
+    """The kernel shift-adds the slices of a block's G row groups in int32
+    where G * sum_s 2 partial_max << (s cell_bits) < 2**31 (a rounded partial
+    stays below 2 partial_max), and in int64 otherwise; ``narrow``: one row
+    group fits."""
     kw = dict(SPECS, cell1dac8=dict(cell_bits=1, dac_bits=8))[spec_name]
     spec = TSpec(**kw)
     bound = sum((2 * spec.partial_max) << (s * spec.cell_bits) for s in range(spec.n_slices))
