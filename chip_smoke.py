@@ -8,10 +8,12 @@ Phases (one JSON line each; any failure is an uncaught exception):
   env          torch / CUDA / nvcc versions, the card's name and power limit
   build        builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels      every kernel against its plain PyTorch version on the card,
-               bit-identical, timed with CUDA events beside its bound; the
-               three VMM kernels also at their tile edges, ragged N and K and
-               extreme codes or cells (the fast one past its int32 fold too),
-               and timed on a cold L2
+               bit-identical (the scan within a float32 tolerance), timed with
+               CUDA events beside its bound and on a cold L2; the three VMM
+               kernels also at their tile edges, ragged N and K and extreme
+               codes or cells (the fast one past its int32 fold too), the
+               scan at ragged dh, dh = 2048, 5 and 9 batch rows and one head,
+               each scan case with the launch plan it ran
   cpu_vs_card_projections  a reduced chip programmed on the CPU, carried to
                the card through the store: every projection bit-equal
                (ideal, paper-datapath and noisy chips)
@@ -28,7 +30,8 @@ Phases (one JSON line each; any failure is an uncaught exception):
                per forward), incl. a store save -> restore round trip
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
                (smollm ideal, paper datapath and noisy, xlstm): device busy
-               time, launches per tick, the heaviest kernels
+               time, launches per tick, the heaviest kernels; for xlstm the
+               scan kernel's own device time and launches per tick
 
 Needs one CUDA device; exits non-zero without one.  ``--quick`` (not used by
 the default run) cuts the kernel cases and the model depth for a fast check
@@ -78,6 +81,15 @@ XLSTM_HEAD = (1024, 50304)  # the tied head of xlstm-350m, K x N
 # decode row, and prefills of 32 / 48 (the longest prompt served) / 256 tokens
 SCAN_SHAPES = [(4, 1), (1, 1), (1, 32), (1, 48), (1, 256)]
 SCAN_HEADS, SCAN_DH = 4, 512  # xlstm-350m: 4 heads of 2048 / 4
+# (label, B, S, H, dh) held against the plain version, untimed: dh not a
+# multiple of the cluster's 16-byte column units (48, 100), dh = 2048 (R
+# partly resident), more batch rows than a power of two (5) and than a CTA
+# takes (9, two batch groups), one head, and decode (S = 1) past 8 rows
+SCAN_EDGES = [
+    ("ragged", 2, 5, 3, 48), ("dh100", 5, 4, 2, 100), ("dh2048", 2, 3, 1, 2048),
+    ("B5", 5, 3, 4, 512), ("B9", 9, 3, 4, 512), ("B9_decode", 9, 1, 4, 512), ("H1", 1, 8, 1, 512),
+]
+SCAN_KERNEL = "slstm_cluster_kernel"  # its name in a profiler trace
 # the head is the only projection of an xlstm chip: its logits stay close to
 # the plain-matmul model's (smollm-360m's 193 projections allow 0.25)
 XLSTM_REL_L2_MAX = 0.1
@@ -542,6 +554,7 @@ def run_scan_case(label, B, S, H, dh, dtype, seed, dev, timed):
     _, c0, n0, h0 = slstm_scan_plain(normal(B, 8, 4, H, dh).to(dtype), *rs, zero, zero + 1.0, zero)
     kernel = lambda: slstm_scan_cuda(pre, *rs, c0, n0, h0)
     plain = lambda: slstm_scan_plain(pre, *rs, c0, n0, h0)
+    plan = kscan.plan_scan(B, S, H, dh, pre.element_size(), kscan.card_max_cluster(dtype))
     got = kernel()
     torch.cuda.synchronize()
     ref = plain()
@@ -562,6 +575,7 @@ def run_scan_case(label, B, S, H, dh, dtype, seed, dev, timed):
         B=B, S=S, H=H, dh=dh, shape=[B, S, H, dh], steps=S, equal=all(within),
         max_abs_err=max(float(e.max()) for e in err), max_bf16_ulps=max_ulps,
         equal_by_output=dict(zip(("h_all", "c1", "n1", "h1"), within)),
+        plan=plan._asdict(),
     )
     if not case["equal"]:
         emit({"phase": "kernels", "failed_case": case})
@@ -569,6 +583,7 @@ def run_scan_case(label, B, S, H, dh, dtype, seed, dev, timed):
     if timed:
         case["call_ms"] = cuda_ms(kernel, reps=10)
         case["kernel_ms"] = graph_ms(kernel)
+        case["kernel_ms_cold"] = cold_ms(kernel)  # a real tick finds R cold
         case["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
         case["bound_ms"], case["bound_by"] = scan_bound_ms(B, S, H, dh, pre.element_size())
         case["library_ms"] = None  # no one PyTorch call computes the sLSTM scan
@@ -582,9 +597,9 @@ def scan_cases(dev, quick: bool):
         for B, S in (SCAN_SHAPES[::3] if quick else SCAN_SHAPES):
             seed += 1
             cases.append(run_scan_case("main", B, S, SCAN_HEADS, SCAN_DH, dtype, seed, dev, timed=True))
-        # ragged: dh = 48 is not a multiple of 32 (the kernel masks 16 lanes)
-        seed += 1
-        cases.append(run_scan_case("ragged", 2, 5, 3, 48, dtype, seed, dev, timed=False))
+        for label, B, S, H, dh in (SCAN_EDGES[:1] if quick else SCAN_EDGES):
+            seed += 1
+            cases.append(run_scan_case(label, B, S, H, dh, dtype, seed, dev, timed=False))
     return cases
 
 
@@ -721,11 +736,13 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check)
     return line, launches, eng
 
 
-def tick_profile(phase, eng, prompts, ticks=3):
+def tick_profile(phase, eng, prompts, ticks=3, kernel=None):
     """Where one decode tick goes: ``ticks`` steady decode ticks of a full
     slot pool under ``torch.profiler`` (CPU + CUDA activities).  Device busy
     time is the sum of the kernels' own device time; the wall time is taken
-    with the profiler on and is not the tick time reported by the serve phase."""
+    with the profiler on and is not the tick time reported by the serve phase.
+    ``kernel``: a kernel name whose device time and launches per tick are
+    reported on their own (summed over every entry that names it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -749,13 +766,20 @@ def tick_profile(phase, eng, prompts, ticks=3):
             kernels.append((e.key, e.self_device_time_total / 1e3, e.count))
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    return dict(
+    line = dict(
         phase=phase, ticks=ticks, wall_ms_per_tick_profiled=wall_ms / ticks,
         device_busy_ms_per_tick=busy_ms / ticks,
         device_idle_share=(1.0 - busy_ms / wall_ms) if wall_ms else None,
         device_launches_per_tick=sum(k[2] for k in kernels) / ticks,
         top_device_time=[dict(name=k[0][:60], ms_per_tick=k[1] / ticks, calls_per_tick=k[2] / ticks) for k in kernels[:8]],
     )
+    if kernel is not None:
+        mine = [k for k in kernels if kernel in k[0]]
+        line["kernel"] = dict(
+            name=kernel, entries=[k[0][:80] for k in mine],
+            ms_per_tick=sum(k[1] for k in mine) / ticks, calls_per_tick=sum(k[2] for k in mine) / ticks,
+        )
+    return line
 
 
 def reference_check(cfg, params, eng, dev):
@@ -918,8 +942,20 @@ def main() -> int:
         line["logits_rel_l2_vs_plain_matmul"] < XLSTM_REL_L2_MAX,
         f"xlstm chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain matmul model",
     )
+    if not args.quick:  # 6 prefills + 30 decode ticks, 12 sLSTM layers each
+        require(
+            line["slstm_layers"] == 12 and launches_xlstm["slstm_scan"] == 432,
+            f"xlstm: {launches_xlstm['slstm_scan']} scan launches of {line['slstm_layers']} sLSTM layers, "
+            f"expected 12 x 36 = 432",
+        )
     emit(line)
-    emit(tick_profile("tick_profile_xlstm", eng, make_requests(xcfg, args.seed + 5), ticks=3))
+    prof = tick_profile("tick_profile_xlstm", eng, make_requests(xcfg, args.seed + 5), ticks=3, kernel=SCAN_KERNEL)
+    n_scan = sum(spec.repeats * spec.kinds.count("slstm") for spec in xcfg.stages)
+    require(
+        prof["kernel"]["calls_per_tick"] == n_scan,
+        f"tick_profile_xlstm: {SCAN_KERNEL} ran {prof['kernel']['calls_per_tick']} times a tick, expected {n_scan}",
+    )
+    emit(prof)
     del eng
     torch.cuda.empty_cache()
 

@@ -2,12 +2,20 @@
 
 ``slstm_scan_cuda`` is the counterpart of ``repro.kernels.slstm_scan.
 slstm_scan_pallas`` and replaces the TPU kernel ``_kernel`` with
-``slstm_scan_kernel`` of ``csrc/slstm_scan.cu`` (the source holds the design
-note).  One launch computes the whole (B, S) scan: one block per (batch row,
-head), the sequence loop inside the block, float32 state and arithmetic.
-Bound by the bytes of the four recurrent matrices at decode and by float32
-operations in prefill; the S sequential steps, each streaming the head's
-matrices from L2 into one SM, keep v1 far from either bound.
+``slstm_cluster_kernel`` of ``csrc/slstm_scan.cu`` (the source holds the
+design note).  One launch computes the whole (B, S) scan, float32 state and
+arithmetic.  Each head's output columns are split over the CTAs of a
+thread-block cluster; each CTA keeps its slice of the four recurrent matrices
+in shared memory across the steps (S > 1; read straight from global memory at
+S = 1) and the new h of every step goes to all CTAs of the cluster through
+distributed shared memory.  Bound by the bytes of the recurrent matrices at
+decode and by float32 operations in prefill; the S sequential steps, each
+ending at a cluster barrier, are what the bound does not see.
+
+``plan_scan`` makes the launch plan (cluster size, columns and batch rows a
+CTA takes, resident rows of R, threads, dynamic shared bytes) from the shapes
+and the largest cluster the card schedules; it is plain Python, so the tiling
+is tested on the CPU, and the C entry checks it again.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel or
 raises, a CPU tensor takes the plain version ``slstm_scan_plain`` (the
@@ -18,14 +26,21 @@ reference's per-step update as a Python loop).  Each launch adds one to
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 IGATE_CLIP = 5.0
-MAX_DH = 4 * 512  # MAX_COLS * MAX_THREADS in the kernel source
+MAX_DH = 2048  # SCAN_MAX_DH in the kernel source
+SMEM_LIMIT = 232448  # shared bytes a block may use on sm_90 (227 KB)
+MAX_WARPS = 16  # threads = 32 * min(MAX_WARPS, output units of a CTA)
+MAX_ITEMS = 2  # (row, column) cells a thread owns: rows * cols <= MAX_ITEMS * threads
+MAX_ROWS = 8  # batch rows a CTA takes; more go to further clusters
+ROW_SLOTS = (1, 2, 4, 8)  # compiled batch-row counts
+CLUSTER_SIZES = (16, 8, 4, 2)  # tried in turn on the card
 
 LAUNCHES = {"slstm_scan": 0}
 PLAIN_CALLS = {"slstm_scan": 0}
@@ -61,17 +76,97 @@ def slstm_scan_plain(pre, r_z, r_i, r_f, r_o, c0, n0, h0):
     return torch.stack(hs, dim=1).to(pre.dtype), c, n, h
 
 
+class ScanPlan(NamedTuple):
+    """How one call is cut: grid (col_blocks, H, batch_groups), the column
+    blocks of one (head, batch group) forming a cluster where S > 1."""
+
+    cluster: int  # CTAs of a cluster: col_blocks where S > 1 and there are several, else 1
+    col_blocks: int  # CTAs a head's output columns are split over
+    cols: int  # output columns a CTA takes, of all four gates (a multiple of 16 bytes)
+    rows: int  # batch rows a CTA takes
+    row_slots: int  # the compiled row count >= rows (the kernel's SLOTS)
+    batch_groups: int  # clusters along the batch axis
+    resident: int  # input rows of the CTA's R slice held in shared memory (0 at S = 1)
+    threads: int
+    unit_lanes: int  # 16-byte units of one input row a warp reads side by side (UL)
+    smem: int  # dynamic shared bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_scan(B: int, S: int, H: int, dh: int, esize: int, max_cluster: int = 16) -> ScanPlan:
+    """The launch plan of ``slstm_cluster_kernel`` for ``pre`` of shape
+    (B, S, 4, H, dh) with ``esize``-byte values (4 float32, 2 bf16), where the
+    card schedules clusters of up to ``max_cluster`` CTAs.  Columns go in
+    16-byte units over at most ``max_cluster`` CTAs; batch rows in balanced
+    groups of at most ``MAX_ROWS``; R's rows are resident as far as shared
+    memory holds them (all of them, or a multiple of 32)."""
+    if B < 1 or S < 1 or H < 1 or not 1 <= dh <= MAX_DH or esize not in (2, 4):
+        raise ValueError(f"no plan for B={B} S={S} H={H} dh={dh} esize={esize}")
+    vec = 16 // esize
+    cols = _cdiv(_cdiv(dh, max_cluster), vec) * vec
+    col_blocks = _cdiv(dh, cols)
+    units = 4 * cols // vec
+    threads = 32 * min(MAX_WARPS, units)
+    # a warp reads UL adjacent units of one gate (UL x 16 contiguous bytes of
+    # a row) for 32 / UL rows at a time; UL warp slots split a group's rows,
+    # so each slot's partial gate sums are added in the gate step
+    unit_lanes = next(k for k in (4, 2, 1) if (units // 4) % k == 0)
+    row_cap = min(MAX_ROWS, MAX_ITEMS * threads // cols)
+    if row_cap < 1:
+        raise ValueError(f"dh={dh} needs clusters of more than {max_cluster} CTAs")
+    batch_groups = _cdiv(B, row_cap)
+    rows = _cdiv(B, batch_groups)
+    slots = next(s for s in ROW_SLOTS if s >= rows)
+    # two h buffers, the slots' partial gate sums, the CTA's block of h
+    fixed = 4 * slots * (2 * col_blocks * cols + (4 * unit_lanes + 1) * cols)
+    per_row = 16 * units
+    resident = 0
+    if S > 1:
+        fit = (SMEM_LIMIT - fixed) // per_row
+        resident = dh if fit >= dh else fit // 32 * 32
+    return ScanPlan(
+        cluster=col_blocks if S > 1 and col_blocks > 1 else 1, col_blocks=col_blocks, cols=cols,
+        rows=rows, row_slots=slots, batch_groups=batch_groups, resident=resident, threads=threads,
+        unit_lanes=unit_lanes, smem=fixed + per_row * resident,
+    )
+
+
 _FN = None
+_MAX_CLUSTER = {}
 
 
 def _kernel_fn():
     global _FN
     if _FN is None:
         fn = _build.load_library().slstm_scan
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def card_max_cluster(dtype: torch.dtype) -> int:
+    """The largest cluster of ``CLUSTER_SIZES`` that the current card
+    schedules for the kernel at its widest (512 threads, all shared memory)."""
+    key = (torch.cuda.current_device(), dtype)
+    if key not in _MAX_CLUSTER:
+        fn = _build.load_library().slstm_scan_max_clusters
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+        for size in CLUSTER_SIZES:
+            n = fn(int(dtype == torch.bfloat16), size, 32 * MAX_WARPS, SMEM_LIMIT)
+            if n < 0:
+                raise RuntimeError(f"slstm_scan: setting the kernel's attributes failed: cudaError {-n}")
+            if n > 0:
+                _MAX_CLUSTER[key] = size
+                break
+        else:
+            raise RuntimeError(f"the card schedules no cluster of {CLUSTER_SIZES} CTAs for slstm_scan")
+    return _MAX_CLUSTER[key]
 
 
 def _check(t: torch.Tensor, what: str, shape, dtype, device) -> None:
@@ -120,13 +215,16 @@ def slstm_scan_cuda(
             f"operands lie on {dev} but the current CUDA device is "
             f"{torch.cuda.current_device()}: enter torch.cuda.device(...) first"
         )
+    plan = plan_scan(B, S, H, dh, pre.element_size(), card_max_cluster(pre.dtype))
     h_all = torch.empty((B, S, H, dh), dtype=pre.dtype, device=dev)
     c1, n1, h1 = (torch.empty((B, H, dh), dtype=torch.float32, device=dev) for _ in range(3))
     err = _kernel_fn()(
         *(t.data_ptr() for t in (pre, r_z, r_i, r_f, r_o, c0, n0, h0, h_all, c1, n1, h1)),
-        B, S, H, dh, int(pre.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+        B, S, H, dh, int(pre.dtype == torch.bfloat16),
+        plan.cluster, plan.cols, plan.rows, plan.row_slots, plan.resident, plan.threads, plan.smem,
+        torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"CUDA kernel slstm_scan was refused at launch: cudaError {err}")
+        raise RuntimeError(f"CUDA kernel slstm_scan was refused at launch: cudaError {err} (plan {plan})")
     LAUNCHES["slstm_scan"] += 1
     return h_all, c1, n1, h1
