@@ -28,10 +28,18 @@ Phases (one JSON line each; any failure is an uncaught exception):
                from an ideal programmed chip: the tied head on the fast
                kernel, every sLSTM recurrence on the scan kernel (12 launches
                per forward), incl. a store save -> restore round trip
+               Every serve phase runs its decode ticks by replaying the
+               pool's captured CUDA graph (``graph_replays`` = ``decode_ticks``,
+               ``capture_seconds``); prefills stay eager.
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
-               (smollm ideal, paper datapath and noisy, xlstm): device busy
-               time, launches per tick, the heaviest kernels; for xlstm the
-               scan kernel's own device time and launches per tick
+               (ideal, paper, noisy, xlstm): device busy time, launches per
+               tick, the heaviest kernels, and each of our kernels' device
+               time and calls a tick inside the replays, held equal to the
+               launches the replays credited to the wrappers' counters
+  graph_vs_eager_*  12 ticks of a full pool by replay and, alternating,
+               eagerly on a clone of the cache: logits bit-equal every tick,
+               caches after the last; both tick medians and a replay's
+               device span
 
 Needs one CUDA device; exits non-zero without one.  ``--quick`` (not used by
 the default run) cuts the kernel cases and the model depth for a fast check
@@ -67,6 +75,7 @@ from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_plain  # 
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.layers import CrossbarMode, crossbar_misses, crossbar_mode, reset_crossbar_misses  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving.graphs import cache_leaves, clone_cache  # noqa: E402
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor ops/s and
 # float32 ops/s outside the tensor cores.
@@ -90,6 +99,10 @@ SCAN_EDGES = [
     ("B5", 5, 3, 4, 512), ("B9", 9, 3, 4, 512), ("B9_decode", 9, 1, 4, 512), ("H1", 1, 8, 1, 512),
 ]
 SCAN_KERNEL = "slstm_cluster_kernel"  # its name in a profiler trace
+# the kernel each launch counter counts, by its name in a profiler trace
+TRACE_NAMES = {
+    "fast": "fast_kernel", "planes": "paper_mma_kernel", "noisy": "noisy_mma_kernel", "slstm_scan": SCAN_KERNEL,
+}
 # the head is the only projection of an xlstm chip: its logits stay close to
 # the plain-matmul model's (smollm-360m's 193 projections allow 0.25)
 XLSTM_REL_L2_MAX = 0.1
@@ -680,6 +693,11 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check)
     kscan.reset_counters()
     reqs, prefills, ticks, seconds, tick_s, decoded = drive(eng, prompts, max_new=16)
     launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES)
+    graph = eng.runner.decode_graph
+    require(
+        graph is not None and graph.graph is not None and graph.replays == ticks,
+        f"{graph.replays if graph else None} graph replays for {ticks} decode ticks",
+    )
     plain_calls = dict(kvmm.PLAIN_CALLS, **kscan.PLAIN_CALLS)
     tokens = [r.generated for r in reqs]
     n_tok = sum(len(t) for t in tokens)
@@ -716,6 +734,7 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check)
         launches=launches, plain_calls=plain_calls, misses=0,
         program_seconds=program_s, serve_seconds=seconds, tokens_per_s=n_tok / seconds,
         decode_tick_ms_median=(1e3 * statistics.median(tick_s) if tick_s else None),
+        graph_replays=graph.replays, capture_seconds=graph.capture_seconds,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, tokens=tokens,
     )
     if restore_check:
@@ -736,13 +755,16 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check)
     return line, launches, eng
 
 
-def tick_profile(phase, eng, prompts, ticks=3, kernel=None):
+def tick_profile(phase, eng, prompts, ticks=3):
     """Where one decode tick goes: ``ticks`` steady decode ticks of a full
-    slot pool under ``torch.profiler`` (CPU + CUDA activities).  Device busy
-    time is the sum of the kernels' own device time; the wall time is taken
-    with the profiler on and is not the tick time reported by the serve phase.
-    ``kernel``: a kernel name whose device time and launches per tick are
-    reported on their own (summed over every entry that names it)."""
+    slot pool (graph replays) under ``torch.profiler`` (CPU + CUDA
+    activities).  Device busy time is the sum of the kernels' own device
+    time; the wall time is taken with the profiler on and is not the tick
+    time reported by the serve phase.  ``kernels``: each of our kernels that
+    ran in the window, its device time and calls a tick as the profiler saw
+    them inside the replays, held equal to the launches a tick that the
+    replays credited to the wrappers' counters (summed over every trace entry
+    that names the kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -751,12 +773,15 @@ def tick_profile(phase, eng, prompts, ticks=3, kernel=None):
     for _ in range(3):  # admission and warm ticks
         eng.step()
     torch.cuda.synchronize()
+    kvmm.reset_counters()
+    kscan.reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    credited = {k: n for k, n in dict(kvmm.LAUNCHES, **kscan.LAUNCHES).items() if n}
     eng.run_until_done()
     kernels = []
     for e in prof.key_averages():
@@ -772,13 +797,99 @@ def tick_profile(phase, eng, prompts, ticks=3, kernel=None):
         device_idle_share=(1.0 - busy_ms / wall_ms) if wall_ms else None,
         device_launches_per_tick=sum(k[2] for k in kernels) / ticks,
         top_device_time=[dict(name=k[0][:60], ms_per_tick=k[1] / ticks, calls_per_tick=k[2] / ticks) for k in kernels[:8]],
+        kernels=[],
     )
-    if kernel is not None:
-        mine = [k for k in kernels if kernel in k[0]]
-        line["kernel"] = dict(
-            name=kernel, entries=[k[0][:80] for k in mine],
+    for counter, n in credited.items():
+        name = TRACE_NAMES[counter]
+        mine = [k for k in kernels if name in k[0]]
+        line["kernels"].append(dict(
+            name=name, counter=counter, entries=[k[0][:80] for k in mine],
             ms_per_tick=sum(k[1] for k in mine) / ticks, calls_per_tick=sum(k[2] for k in mine) / ticks,
+            credited_per_tick=n / ticks,
+        ))
+    line["profiler_sees_graph_kernels"] = all(k["calls_per_tick"] > 0 for k in line["kernels"])
+    emit(line)
+    require(line["kernels"], f"{phase}: no kernel launch was credited in the window")
+    for k in line["kernels"]:
+        require(
+            k["calls_per_tick"] == k["credited_per_tick"],
+            f"{phase}: the profiler saw {k['calls_per_tick']} {k['name']} a tick, the counters were "
+            f"credited {k['credited_per_tick']}",
         )
+    return line
+
+
+def replayed_tick_checks(path, eng, cfg, seed, per_tick):
+    """``tick_profile_<path>`` with our kernels' calls a tick held to
+    ``per_tick`` ({trace name: calls}: every projection of a smollm tick on
+    the path's VMM kernel; every sLSTM layer on the scan and the head on the
+    fast kernel for xlstm), then ``graph_vs_eager_<path>``."""
+    prof = tick_profile(f"tick_profile_{path}", eng, make_requests(cfg, seed + 3), ticks=3)
+    seen = {k["name"]: k["calls_per_tick"] for k in prof["kernels"]}
+    require(seen == per_tick, f"tick_profile_{path}: kernels a tick {seen}, expected {per_tick}")
+    graph_vs_eager(path, eng, make_requests(cfg, seed + 6))
+
+
+def graph_vs_eager(path, eng, prompts, ticks=12):
+    """The replayed tick against the eager one on the same pool: a full pool
+    after admission, then ``ticks`` ticks, each run twice in alternating
+    order — by graph replay on the live cache, and eagerly
+    (``decode_step`` under the runner's crossbar mode, inputs copied from the
+    host as the eager runner did) on a clone of it — with the greedy tokens of
+    the replay fed to both.  Logits bit-equal at every tick and the two
+    caches after the last; each tick timed on the host clock to the end of
+    its device-to-host copy of the logits; then the device span of one
+    replay alone."""
+    runner, dev = eng.runner, eng.runner.device
+    for p in prompts[: eng.max_batch]:
+        eng.submit(p, max_new_tokens=ticks + 8)
+    eng.step()  # admits the pool full
+    require(all(s is not None for s in eng.slots), f"graph_vs_eager_{path}: the pool is not full")
+    last, pos = eng.last_tok.astype(np.int64), eng.pos.astype(np.int64)
+    eager_cache = clone_cache(eng.cache)
+    replay_s, eager_s, unequal, max_diff = [], [], [], 0.0
+
+    def replay():
+        return torch.from_numpy(runner.decode(last, pos, eng.cache)[0])
+
+    def eager():
+        toks = torch.from_numpy(last[:, None]).to(dev)
+        pos_t = torch.from_numpy(pos).to(dev)
+        logits, _ = runner._with_crossbar(
+            lambda: model_lib.decode_step(runner.params, runner.cfg, toks, pos_t, eager_cache)
+        )
+        return logits.to(torch.float32).cpu()
+
+    for t in range(ticks):
+        out = {}
+        for name in (("replay", "eager") if t % 2 == 0 else ("eager", "replay")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = replay() if name == "replay" else eager()
+            (replay_s if name == "replay" else eager_s).append(time.perf_counter() - t0)
+        max_diff = max(max_diff, float((out["replay"] - out["eager"]).abs().max()))
+        if not torch.equal(out["replay"], out["eager"]):
+            unequal.append(t)
+        last = out["replay"].argmax(dim=-1).numpy().astype(np.int64)
+        pos = pos + 1
+    caches_equal = all(torch.equal(a, b) for a, b in zip(cache_leaves(eng.cache), cache_leaves(eager_cache)))
+    # the device span of one replay (kernels and the gaps between them),
+    # CUDA events around the graph alone; it rewrites the pool, which is
+    # not used after this check
+    replay_device_ms = cuda_ms(runner.decode_graph.graph.replay, reps=10)
+    line = dict(
+        phase=f"graph_vs_eager_{path}", ticks=ticks, batch=eng.max_batch, logits_equal=not unequal,
+        unequal_ticks=unequal, caches_equal=caches_equal, max_abs_logit_diff=max_diff,
+        decode_tick_ms_median=1e3 * statistics.median(replay_s),
+        eager_decode_tick_ms_median=1e3 * statistics.median(eager_s), replay_device_ms=replay_device_ms,
+        decode_tick_ms=[1e3 * x for x in replay_s], eager_decode_tick_ms=[1e3 * x for x in eager_s],
+    )
+    emit(line)
+    require(not unequal and caches_equal, f"graph_vs_eager_{path}: replay != eager (max |dlogit| {max_diff})")
+    require(
+        line["decode_tick_ms_median"] < line["eager_decode_tick_ms_median"],
+        f"graph_vs_eager_{path}: the replayed tick is not faster than the eager one",
+    )
     return line
 
 
@@ -889,7 +1000,7 @@ def main() -> int:
         f"ideal chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain matmul model",
     )
     emit(line)
-    emit(tick_profile("tick_profile_ideal", eng, make_requests(cfg, args.seed + 3), ticks=3))
+    replayed_tick_checks("ideal", eng, cfg, args.seed, {"fast_kernel": line["projections"]})
     del eng
     torch.cuda.empty_cache()
 
@@ -915,7 +1026,7 @@ def main() -> int:
         )
     line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)
     emit(line)
-    emit(tick_profile("tick_profile_paper", eng, make_requests(cfg, args.seed + 3), ticks=3))
+    replayed_tick_checks("paper", eng, cfg, args.seed, {"paper_mma_kernel": line["projections"]})
     del eng
     torch.cuda.empty_cache()
 
@@ -924,7 +1035,7 @@ def main() -> int:
     line, launches_noisy, eng = serve_phase("serve_noisy", cfg, params, noisy, "noisy", dev, args.seed + 1, False)
     line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)
     emit(line)
-    emit(tick_profile("tick_profile_noisy", eng, make_requests(cfg, args.seed + 3), ticks=3))
+    replayed_tick_checks("noisy", eng, cfg, args.seed, {"noisy_mma_kernel": line["projections"]})
     del eng
     torch.cuda.empty_cache()
 
@@ -949,13 +1060,7 @@ def main() -> int:
             f"expected 12 x 36 = 432",
         )
     emit(line)
-    prof = tick_profile("tick_profile_xlstm", eng, make_requests(xcfg, args.seed + 5), ticks=3, kernel=SCAN_KERNEL)
-    n_scan = sum(spec.repeats * spec.kinds.count("slstm") for spec in xcfg.stages)
-    require(
-        prof["kernel"]["calls_per_tick"] == n_scan,
-        f"tick_profile_xlstm: {SCAN_KERNEL} ran {prof['kernel']['calls_per_tick']} times a tick, expected {n_scan}",
-    )
-    emit(prof)
+    replayed_tick_checks("xlstm", eng, xcfg, args.seed, {SCAN_KERNEL: line["slstm_layers"], "fast_kernel": 1})
     del eng
     torch.cuda.empty_cache()
 

@@ -98,10 +98,11 @@ def decode_attention(q, k, v, pos, *, scale, window=0, attn_cap=0.0):
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Write one decode step into the cache at ``pos`` (0-d, or (B,) per-slot
-    positions), in place."""
+    positions), in place.  The position stays on the device (no host read),
+    so the write can be captured in a CUDA graph."""
     new = new.to(cache.dtype)
     if pos.ndim == 0:
-        cache[:, int(pos): int(pos) + 1] = new
+        cache.index_copy_(1, pos.reshape(1).to(torch.int64), new)
     else:
         cache[torch.arange(cache.shape[0], device=cache.device), pos] = new[:, 0]
     return cache

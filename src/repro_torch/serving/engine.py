@@ -12,6 +12,10 @@ recurrent model's at its exact length) and its cache copied into a free slot;
 one ``decode_step`` advances *all* slots each tick with per-slot positions;
 finished slots are freed and refilled.
 
+The decode tick is compiled as the reference jits it: on the card the pool's
+``decode_step`` is captured once as a CUDA graph and replayed every tick
+(``serving.graphs.DecodeGraph``); prefill stays eager.
+
 Generation is deterministic given (seed, admission order).  The decode tick
 returns host float32 logits — one device synchronisation per tick.
 """
@@ -31,6 +35,7 @@ from repro_torch.device import programmed as prog_mod
 from repro_torch.models import layers as layers_mod
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import CrossbarMode, crossbar_mode
+from repro_torch.serving.graphs import DecodeGraph
 
 
 @dataclasses.dataclass
@@ -80,6 +85,7 @@ class ModelRunner:
         self.crossbar = self._program_crossbars(crossbar, restore_artifacts)
         if verify_coverage:
             self.verify_crossbar_coverage()
+        self._decode_graph: Optional[DecodeGraph] = None
 
     # ------------------------------------------------------------------
     @property
@@ -234,13 +240,21 @@ class ModelRunner:
 
     def decode(self, last_tok: np.ndarray, pos: np.ndarray, cache):
         """One decode tick over the whole slot pool; returns
-        ``(logits, cache)`` with logits as host float32."""
-        toks = torch.from_numpy(np.asarray(last_tok, np.int64)[:, None]).to(self.device)
-        pos_t = torch.from_numpy(np.asarray(pos, np.int64)).to(self.device)
-        logits, cache = self._with_crossbar(
-            lambda: model_lib.decode_step(self.params, self.cfg, toks, pos_t, cache)
-        )
-        return logits.to(torch.float32).cpu().numpy(), cache
+        ``(logits, cache)`` with logits as host float32.  The tick is the
+        runner's ``DecodeGraph`` for this cache: captured on the first call
+        (a CUDA graph on the card) and replayed after; a call with another
+        cache drops the graph and builds one for it."""
+        graph = self._decode_graph
+        if graph is None or not graph.serves(cache):
+            self._decode_graph = None  # free the old graph's memory first
+            graph = self._decode_graph = DecodeGraph(self, cache)
+        return graph.run(last_tok, pos), cache
+
+    @property
+    def decode_graph(self) -> Optional[DecodeGraph]:
+        """The captured tick of the last cache decoded (None before the
+        first tick); a runner keeps at most one."""
+        return self._decode_graph
 
     def sample(self, logits: np.ndarray) -> np.ndarray:
         if self.temperature <= 0.0:

@@ -29,7 +29,7 @@ def test_port_has_the_expected_modules():
         "kernels/crossbar_vmm.py", "kernels/noisy_vmm.py", "kernels/ops.py",
         "device/models.py", "device/programmed.py", "checkpoint/checkpoint.py",
         "convert.py", "models/layers.py", "models/attention.py", "models/model.py",
-        "serving/engine.py", "configs/smollm_360m.py", "configs/xlstm_350m.py",
+        "serving/engine.py", "serving/graphs.py", "configs/smollm_360m.py", "configs/xlstm_350m.py",
         "kernels/slstm_scan.py", "models/xlstm.py",
     ):
         assert want in names, want

@@ -168,6 +168,28 @@ def test_digital_prefill_and_decode_match_reference_and_forward(tiny):
     assert TM.init_cache(tcfg, 1, 4, device="cpu")[0]["b0"]["k"].dtype == torch.bfloat16
 
 
+def test_decode_step_with_a_scalar_position_matches_reference(tiny):
+    """A 0-d position (every row at one step, as the reference's
+    ``decode_step`` accepts it): the logits and the cache write match the JAX
+    package's, and equal the per-row form at the same step exactly."""
+    jcfg, tcfg, jparams, tparams, tokens = tiny
+    jcache = JM.init_cache(jcfg, 2, 16, dtype=jnp.float32)
+    tcache = TM.init_cache(tcfg, 2, 16, dtype=torch.float32, device="cpu")
+    _, jcache = JM.prefill(jparams, jcfg, jnp.asarray(tokens[:, :10]), jcache)
+    _, tcache = TM.prefill(tparams, tcfg, torch.from_numpy(tokens[:, :10]), tcache)
+    rows = [{b: {n: t.clone() for n, t in e.items()} for b, e in stage.items()} for stage in tcache]
+    tok = tokens[:, 10:11]
+    jl, jcache = JM.decode_step(jparams, jcfg, jnp.asarray(tok), jnp.asarray(10), jcache)
+    tl, tcache = TM.decode_step(tparams, tcfg, torch.from_numpy(tok), torch.tensor(10), tcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **DIGITAL)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(tcache[0]["b0"][n].numpy(), np.asarray(jcache[0]["b0"][n]), **DIGITAL)
+    rl, rows = TM.decode_step(tparams, tcfg, torch.from_numpy(tok), torch.tensor([10, 10]), rows)
+    assert torch.equal(tl, rl)
+    for n in ("k", "v"):
+        assert torch.equal(tcache[0]["b0"][n], rows[0]["b0"][n])
+
+
 def _chip_logits(tiny, tmp_path, device_kw, monkeypatch=None):
     """Logits of both packages from one chip programmed by the JAX package;
     also the head's output LSB (x_scale * w_scale * 2**drop_lsb) as the port
