@@ -14,9 +14,15 @@ Phases (one JSON line each; any failure is an uncaught exception):
                codes or cells (the fast one past its int32 fold too), the
                scan at ragged dh, dh = 2048, 5 and 9 batch rows and one head,
                each scan case with the launch plan it ran
+  planned_datapaths  the planned divide-and-conquer datapaths (Karatsuba
+               levels 1 and 2, Strassen) at the main-path shapes, M = 4 and
+               32: output codes equal to the fast kernel's, with TF32 allowed
+               too, timed beside the fast kernel and a float64 matmul of the
+               same codes; one planned noisy projection equal to the noisy
+               kernel's unplanned one
   cpu_vs_card_projections  a reduced chip programmed on the CPU, carried to
                the card through the store: every projection bit-equal
-               (ideal, paper-datapath and noisy chips)
+               (ideal, paper-datapath, noisy and planned chips)
   serve_ideal  smollm-360m at full width and depth served by ``ServingEngine``
                from an ideal programmed chip (fast kernel), incl. a store
                save -> restore round trip
@@ -24,6 +30,11 @@ Phases (one JSON line each; any failure is an uncaught exception):
                adaptive ADC (the paper datapath, paper_mma_kernel)
   serve_noisy  the same from a chip programmed with stuck cells and
                programming variation (noisy kernel)
+  serve_planned  the same from a chip programmed under
+               ``planner.plan_model`` (Karatsuba level 2 on every
+               projection): no VMM kernel runs, tokens and one prompt's
+               logits equal to the ideal chip's, and the saved chip passes
+               ``verify_store`` before it is restored
   serve_xlstm  xlstm-350m at full width and depth (24 layers, mLSTM / sLSTM)
                from an ideal programmed chip: the tied head on the fast
                kernel, every sLSTM recurrence on the scan kernel (12 launches
@@ -32,7 +43,7 @@ Phases (one JSON line each; any failure is an uncaught exception):
                pool's captured CUDA graph (``graph_replays`` = ``decode_ticks``,
                ``capture_seconds``); prefills stay eager.
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
-               (ideal, paper, noisy, xlstm): device busy time, launches per
+               (ideal, paper, noisy, planned, xlstm): device busy time, launches per
                tick, the heaviest kernels, and each of our kernels' device
                time and calls a tick inside the replays, held equal to the
                launches the replays credited to the wrappers' counters
@@ -62,10 +73,15 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.analysis import verify_store  # noqa: E402
 from repro_torch.configs import StageSpec, get_config, reduced  # noqa: E402
 from repro_torch.core import adc  # noqa: E402
-from repro_torch.core.crossbar import CrossbarSpec, DEFAULT_SPEC, layer_scaled_spec  # noqa: E402
+from repro_torch.core.crossbar import CrossbarSpec, DEFAULT_SPEC, layer_scaled_spec, quantize_input  # noqa: E402
+from repro_torch.core.karatsuba import karatsuba_vmm  # noqa: E402
+from repro_torch.core.planner import LayerPlan, plan_model  # noqa: E402
+from repro_torch.core.strassen import strassen_matmul  # noqa: E402
 from repro_torch.device import DeviceConfig, effective_cell_codes  # noqa: E402
+from repro_torch.device import programmed as tprog  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import crossbar_vmm as kvmm  # noqa: E402
 from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda, crossbar_vmm_plain  # noqa: E402
@@ -84,6 +100,10 @@ INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 
 NOISY_DEVICE = DeviceConfig(sigma=0.02, p_stuck_on=1e-3, p_stuck_off=1e-3)
+# a planned noisy chip serves only without stuck cells: a plan's spare budget
+# on stuck cells needs spare-column repair, which is not ported
+STUCK_FREE_DEVICE = DeviceConfig(sigma=0.02)
+PLANNED = ("karatsuba1", "karatsuba2", "strassen")
 MAIN_SHAPES = [(960, 960), (960, 320), (960, 5120), (2560, 960), (960, 49152)]
 XLSTM_HEAD = (1024, 50304)  # the tied head of xlstm-350m, K x N
 # (B, S) of the scan on the xlstm path: a decode tick of the slot pool, one
@@ -103,6 +123,7 @@ SCAN_KERNEL = "slstm_cluster_kernel"  # its name in a profiler trace
 TRACE_NAMES = {
     "fast": "fast_kernel", "planes": "paper_mma_kernel", "noisy": "noisy_mma_kernel", "slstm_scan": SCAN_KERNEL,
 }
+VMM_COUNTERS = tuple(kvmm.LAUNCHES)  # the three VMM kernels' launch counters
 # the head is the only projection of an xlstm chip: its logits stay close to
 # the plain-matmul model's (smollm-360m's 193 projections allow 0.25)
 XLSTM_REL_L2_MAX = 0.1
@@ -647,6 +668,104 @@ def kernel_summary(cases, launches, launches_by_path):
 
 
 # ---------------------------------------------------------------------------
+# planned datapaths phase
+# ---------------------------------------------------------------------------
+
+def _dnc_codes(datapath, xq, art):
+    """Output codes of a planned artifact's datapath (the function
+    ``programmed_matmul`` routes it to)."""
+    if datapath == "strassen":
+        return strassen_matmul(xq, art.w_codes, art.spec, levels=1)
+    return karatsuba_vmm(xq, art.w_codes, art.spec, levels=art.plan.karatsuba_levels)
+
+
+def planned_datapaths(dev, quick: bool):
+    """Each planned divide-and-conquer datapath against the fast kernel on
+    the artifacts ``program_layer(plan=)`` compiles, at the main-path
+    shapes: output codes ``torch.equal`` to K1's (and again with TF32
+    allowed for the call: the sub-products are float64 matmuls, which TF32
+    does not touch), the planned ``programmed_matmul`` equal to the
+    unplanned one, each timed with CUDA events (median of 10 eager calls,
+    and per call of a captured graph) beside K1 and beside one float64
+    ``torch.matmul`` of the same codes; then one planned noisy projection
+    on a stuck-free chip equal to the unplanned noisy chip's (the noisy
+    kernel serves both under the plan's ADC schedule)."""
+    rng = np.random.default_rng(77)
+    cases = []
+    for K, N in (MAIN_SHAPES[:2] if quick else MAIN_SHAPES):
+        w = torch.from_numpy((rng.normal(size=(K, N)) * K**-0.5).astype(np.float32)).to(dev)
+        base = tprog.program_layer(w)
+        arts = {dp: tprog.program_layer(w, plan=LayerPlan(name=f"{K}x{N}", datapath=dp, adc_mode="safe_adaptive"))
+                for dp in PLANNED}
+        spec = base.spec
+        wd = (base.w_codes + spec.weight_bias).double()
+        for M in ((4,) if quick else (4, 32)):
+            x = torch.from_numpy(np.abs(rng.normal(size=(M, K))).astype(np.float32)).to(dev)
+            x_scale = torch.clamp(torch.max(x), min=1e-9) / ((1 << spec.input_bits) - 1)
+            xq = quantize_input(x, spec, x_scale)
+            k1 = lambda: crossbar_vmm_cuda(xq, base.w_codes, spec, None, fast=True)
+            y_k1 = k1()
+            y_base = tprog.programmed_matmul(x, base)
+            xd = xq.double()
+            k1_ms = cuda_ms(k1, reps=10)
+            f64_ms = cuda_ms(lambda: torch.matmul(xd, wd), reps=10)
+            for dp, art in arts.items():
+                fn = lambda: _dnc_codes(dp, xq, art)
+                y = fn()
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    y_tf32 = fn()
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                tprog.reset_planned_calls()
+                y_art = tprog.programmed_matmul(x, art)
+                routed = dict(tprog.PLANNED_CALLS)
+                case = dict(
+                    datapath=dp, M=M, K=K, N=N, drop_lsb=spec.drop_lsb, equal=bool(torch.equal(y, y_k1)),
+                    equal_tf32=bool(torch.equal(y_tf32, y_k1)),
+                    programmed_matmul_equal=bool(torch.equal(y_art, y_base)),
+                    routed=routed[dp] == 1 and sum(routed.values()) == 1,
+                    max_abs_err=int((y.long() - y_k1.long()).abs().max()),
+                    ms=cuda_ms(fn, reps=10), graph_ms=graph_ms(fn, launches=5, reps=5),
+                    k1_ms=k1_ms, float64_matmul_ms=f64_ms,
+                )
+                cases.append(case)
+                if not (case["equal"] and case["equal_tf32"] and case["programmed_matmul_equal"] and case["routed"]):
+                    emit({"phase": "planned_datapaths", "failed_case": case})
+                    raise AssertionError(f"planned datapath {dp} disagrees with the fast kernel: {case}")
+        del base, arts, wd
+        torch.cuda.empty_cache()
+    # a planned noisy projection: the noisy kernel under the plan's ADC
+    K, N = MAIN_SHAPES[2]
+    w = torch.from_numpy((rng.normal(size=(K, N)) * K**-0.5).astype(np.float32)).to(dev)
+    x = torch.from_numpy(np.abs(rng.normal(size=(4, K))).astype(np.float32)).to(dev)
+    noisy = tprog.program_layer(w, device_cfg=STUCK_FREE_DEVICE)
+    planned = tprog.program_layer(
+        w, device_cfg=STUCK_FREE_DEVICE, plan=LayerPlan(name="noisy", datapath="karatsuba2", adc_mode="safe_adaptive")
+    )
+    kvmm.reset_counters()
+    tprog.reset_planned_calls()
+    y_planned = tprog.programmed_matmul(x, planned)
+    launches, planned_calls = dict(kvmm.LAUNCHES), sum(tprog.PLANNED_CALLS.values())
+    noisy_case = dict(
+        M=4, K=K, N=N, device=dataclasses.asdict(STUCK_FREE_DEVICE), adc=dataclasses.asdict(planned.adc_cfg),
+        equal=bool(torch.equal(y_planned, tprog.programmed_matmul(x, noisy))),
+        noisy_launches=launches["noisy"], planned_calls=planned_calls,
+    )
+    require(
+        noisy_case["equal"] and launches == {"fast": 0, "planes": 0, "noisy": 1} and planned_calls == 0,
+        f"planned noisy projection: {noisy_case}",
+    )
+    kvmm.reset_counters()
+    line = dict(
+        phase="planned_datapaths", n_cases=len(cases), all_equal=all(c["equal"] for c in cases),
+        all_equal_tf32=all(c["equal_tf32"] for c in cases), cases=cases, noisy=noisy_case,
+    )
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
 # serve phases
 # ---------------------------------------------------------------------------
 
@@ -678,9 +797,12 @@ def drive(eng, prompts, max_new):
     return reqs, len(prompts), ticks, seconds, tick_s, decoded
 
 
-def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check):
+def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check, plan=None):
+    """``counter``: the launch counter (or, for a planned chip, the
+    ``PLANNED_CALLS`` datapath) that must count every projection of every
+    forward; every other counter must stay at 0."""
     t0 = time.perf_counter()
-    eng = ServingEngine(cfg, params, max_batch=4, max_seq=256, crossbar=crossbar, device=dev)
+    eng = ServingEngine(cfg, params, max_batch=4, max_seq=256, crossbar=crossbar, plan=plan, device=dev)
     torch.cuda.synchronize()
     program_s = time.perf_counter() - t0
     # crossbar projections per forward: a layer-stacked artifact serves once
@@ -691,8 +813,9 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check)
     reset_crossbar_misses()
     kvmm.reset_counters()  # counts are read for the serving run alone
     kscan.reset_counters()
+    tprog.reset_planned_calls()
     reqs, prefills, ticks, seconds, tick_s, decoded = drive(eng, prompts, max_new=16)
-    launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES)
+    launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES, **tprog.PLANNED_CALLS)
     graph = eng.runner.decode_graph
     require(
         graph is not None and graph.graph is not None and graph.replays == ticks,
@@ -742,6 +865,10 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check)
             t0 = time.perf_counter()
             eng.save_artifacts(d)
             save_s = time.perf_counter() - t0
+            expected = tprog.expected_artifact_names(params, tie_lm_head=eng.runner._tie_lm_head)
+            report = verify_store(d, expected=expected)
+            require(report.ok, f"{phase}: the saved chip fails verify_store: {report.summary()}")
+            line.update(verify_store_findings=len(report.findings), verified_artifacts=report.n_artifacts)
             t0 = time.perf_counter()
             eng2 = ServingEngine(
                 cfg, params, max_batch=4, max_seq=256, device=dev, restore_artifacts=d,
@@ -775,6 +902,7 @@ def tick_profile(phase, eng, prompts, ticks=3):
     torch.cuda.synchronize()
     kvmm.reset_counters()
     kscan.reset_counters()
+    tprog.reset_planned_calls()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
@@ -782,6 +910,7 @@ def tick_profile(phase, eng, prompts, ticks=3):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     credited = {k: n for k, n in dict(kvmm.LAUNCHES, **kscan.LAUNCHES).items() if n}
+    planned = {k: n / ticks for k, n in tprog.PLANNED_CALLS.items() if n}
     eng.run_until_done()
     kernels = []
     for e in prof.key_averages():
@@ -797,7 +926,11 @@ def tick_profile(phase, eng, prompts, ticks=3):
         device_idle_share=(1.0 - busy_ms / wall_ms) if wall_ms else None,
         device_launches_per_tick=sum(k[2] for k in kernels) / ticks,
         top_device_time=[dict(name=k[0][:60], ms_per_tick=k[1] / ticks, calls_per_tick=k[2] / ticks) for k in kernels[:8]],
-        kernels=[],
+        kernels=[], planned_calls_per_tick=planned,
+        # trace entries of our three VMM kernels, credited or not
+        vmm_kernel_calls_per_tick=sum(
+            k[2] for k in kernels if any(TRACE_NAMES[c] in k[0] for c in VMM_COUNTERS)
+        ) / ticks,
     )
     for counter, n in credited.items():
         name = TRACE_NAMES[counter]
@@ -809,7 +942,7 @@ def tick_profile(phase, eng, prompts, ticks=3):
         ))
     line["profiler_sees_graph_kernels"] = all(k["calls_per_tick"] > 0 for k in line["kernels"])
     emit(line)
-    require(line["kernels"], f"{phase}: no kernel launch was credited in the window")
+    require(line["kernels"] or planned, f"{phase}: no kernel launch or planned call was credited in the window")
     for k in line["kernels"]:
         require(
             k["calls_per_tick"] == k["credited_per_tick"],
@@ -819,15 +952,23 @@ def tick_profile(phase, eng, prompts, ticks=3):
     return line
 
 
-def replayed_tick_checks(path, eng, cfg, seed, per_tick):
+def replayed_tick_checks(path, eng, cfg, seed, per_tick, planned_per_tick=None):
     """``tick_profile_<path>`` with our kernels' calls a tick held to
     ``per_tick`` ({trace name: calls}: every projection of a smollm tick on
     the path's VMM kernel; every sLSTM layer on the scan and the head on the
-    fast kernel for xlstm), then ``graph_vs_eager_<path>``."""
+    fast kernel for xlstm; none for a planned chip, whose planned calls a
+    tick are held to ``planned_per_tick`` and whose trace must hold no VMM
+    kernel), then ``graph_vs_eager_<path>``."""
     prof = tick_profile(f"tick_profile_{path}", eng, make_requests(cfg, seed + 3), ticks=3)
     seen = {k["name"]: k["calls_per_tick"] for k in prof["kernels"]}
     require(seen == per_tick, f"tick_profile_{path}: kernels a tick {seen}, expected {per_tick}")
-    graph_vs_eager(path, eng, make_requests(cfg, seed + 6))
+    require(
+        prof["planned_calls_per_tick"] == (planned_per_tick or {}),
+        f"tick_profile_{path}: planned calls a tick {prof['planned_calls_per_tick']}, expected {planned_per_tick}",
+    )
+    if planned_per_tick:
+        require(prof["vmm_kernel_calls_per_tick"] == 0, f"tick_profile_{path}: a VMM kernel ran on a planned chip")
+    return graph_vs_eager(path, eng, make_requests(cfg, seed + 6))
 
 
 def graph_vs_eager(path, eng, prompts, ticks=12):
@@ -893,18 +1034,25 @@ def graph_vs_eager(path, eng, prompts, ticks=12):
     return line
 
 
-def reference_check(cfg, params, eng, dev):
-    """Crossbar logits against the plain-matmul forward of the same params
-    on one short prompt: the chip computes x @ w to W16A16 accuracy."""
+def chip_logits(cfg, params, eng, dev):
+    """The chip's logits on one short prompt (the same prompt every call)."""
     tok = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, size=(1, 16))).to(dev)
-    digital = model_lib.forward(params, cfg, tok).float()
     with crossbar_mode(eng.crossbar), eng.programmed.bind():
         xbar = model_lib.forward(params, cfg, tok).float()
     require(
         xbar.shape == (1, 16, cfg.vocab_size) and bool(torch.isfinite(xbar).all()),
         f"full-width logits have shape {tuple(xbar.shape)} or are not finite",
     )
-    return float((xbar - digital).norm() / digital.norm())
+    return tok, xbar
+
+
+def reference_check(cfg, params, eng, dev):
+    """Crossbar logits against the plain-matmul forward of the same params
+    on one short prompt: the chip computes x @ w to W16A16 accuracy.
+    Returns the rel-L2 and the chip's logits (on the host)."""
+    tok, xbar = chip_logits(cfg, params, eng, dev)
+    digital = model_lib.forward(params, cfg, tok).float()
+    return float((xbar - digital).norm() / digital.norm()), xbar.cpu()
 
 
 def _to(tree, dev):
@@ -918,7 +1066,8 @@ def cpu_vs_card_projections(dev):
     to the card through the artifact store, and every projection is held
     bit-equal on the same float input — the plain versions on the CPU against
     the kernels on the card — for an ideal chip (fast kernel), a ``fast=False``
-    one under the adaptive ADC (paper kernel) and a noisy one."""
+    one under the adaptive ADC (paper kernel), a noisy one, and a planned one
+    (Karatsuba level 2, float64 matmuls on both sides)."""
     from repro_torch.device.programmed import programmed_linear
 
     cfg = reduced(get_config("smollm-360m"))
@@ -926,9 +1075,13 @@ def cpu_vs_card_projections(dev):
     p_dev = _to(p_cpu, dev)
     rng = np.random.default_rng(5)
     out = {}
-    for name, fast, dcfg in (("ideal", True, None), ("paper", False, None), ("noisy", True, NOISY_DEVICE)):
+    chips = (
+        ("ideal", True, None, None), ("paper", False, None, None), ("noisy", True, NOISY_DEVICE, None),
+        ("planned", True, None, plan_model(p_cpu, tie_lm_head=True)),
+    )
+    for name, fast, dcfg, plan in chips:
         mode = CrossbarMode(enabled=True, strict=True, fast=fast, device=dcfg)
-        eng_cpu = ServingEngine(cfg, p_cpu, max_batch=2, max_seq=32, crossbar=mode, device="cpu")
+        eng_cpu = ServingEngine(cfg, p_cpu, max_batch=2, max_seq=32, crossbar=mode, plan=plan, device="cpu")
         with tempfile.TemporaryDirectory() as d:
             eng_cpu.save_artifacts(d)
             eng_dev = ServingEngine(
@@ -984,6 +1137,7 @@ def main() -> int:
 
     cases = kernels_phase(dev, args.quick) + scan_cases(dev, args.quick)
     emit(dict(phase="kernels", n_cases=len(cases), all_equal=all(c["equal"] for c in cases)))
+    planned_datapaths(dev, args.quick)
     emit(dict(phase="cpu_vs_card_projections", **cpu_vs_card_projections(dev)))
 
     cfg = get_config("smollm-360m")
@@ -994,7 +1148,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     ideal = CrossbarMode(enabled=True, strict=True)
     line, launches_ideal, eng = serve_phase("serve_ideal", cfg, params, ideal, "fast", dev, args.seed + 1, True)
-    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)
+    line["logits_rel_l2_vs_plain_matmul"], ideal_logits = reference_check(cfg, params, eng, dev)
+    ideal_tokens = line["tokens"]
     require(
         line["logits_rel_l2_vs_plain_matmul"] < 0.25,
         f"ideal chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain matmul model",
@@ -1024,7 +1179,7 @@ def main() -> int:
             f"paper datapath: {launches_planes['planes']} launches of {line['projections']} projections "
             f"in {line['prefills']} + {line['decode_ticks']} forwards, expected 193 x 38 = 7334",
         )
-    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)
+    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)[0]
     emit(line)
     replayed_tick_checks("paper", eng, cfg, args.seed, {"paper_mma_kernel": line["projections"]})
     del eng
@@ -1033,10 +1188,51 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     noisy = CrossbarMode(enabled=True, strict=True, device=NOISY_DEVICE)
     line, launches_noisy, eng = serve_phase("serve_noisy", cfg, params, noisy, "noisy", dev, args.seed + 1, False)
-    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)
+    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)[0]
     emit(line)
     replayed_tick_checks("noisy", eng, cfg, args.seed, {"noisy_mma_kernel": line["projections"]})
     del eng
+    torch.cuda.empty_cache()
+
+    # the planned ("Newton") chip: plan_model picks Karatsuba level 2 under
+    # the adaptive ADC for every projection of an ideal chip; the planned
+    # datapath is exact, so its tokens and logits are the ideal chip's
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = plan_model(params, tie_lm_head=True)
+    plan_s = time.perf_counter() - t0
+    line, launches_planned, eng = serve_phase(
+        "serve_planned", cfg, params, ideal, "karatsuba2", dev, args.seed + 1, True, plan=plan,
+    )
+    served = {}  # planned projections a forward, by datapath (stacked layers each count)
+    for name, art in eng.programmed.by_name.items():
+        served[art.plan.datapath] = served.get(art.plan.datapath, 0) + (art.shape[0] if art.stacked else 1)
+    line.update(
+        plan_seconds=plan_s, plan_histogram=plan.datapath_histogram(), served_histogram=served,
+        plan_adc_modes=sorted({p.adc_mode for p in plan.layers.values()}),
+        planned_calls=launches_planned["karatsuba2"],
+        vmm_kernel_launches={k: launches_planned[k] for k in VMM_COUNTERS},
+        tokens_equal_ideal=line["tokens"] == ideal_tokens,
+    )
+    line["logits_rel_l2_vs_plain_matmul"], planned_logits = reference_check(cfg, params, eng, dev)
+    line["logits_equal_ideal"] = bool(torch.equal(planned_logits, ideal_logits))
+    emit(line)
+    require(
+        line["plan_histogram"] == {"karatsuba2": len(plan.layers)} and served == {"karatsuba2": line["projections"]},
+        f"serve_planned: plan {line['plan_histogram']}, served {served}",
+    )
+    require(all(v == 0 for v in line["vmm_kernel_launches"].values()), f"VMM kernels ran: {launches_planned}")
+    if not args.quick:  # 6 prefills + 32 decode ticks, 193 projections each
+        require(
+            line["projections"] == 193 and line["prefills"] + line["decode_ticks"] == 38
+            and line["planned_calls"] == 7334,
+            f"serve_planned: {line['planned_calls']} planned calls of {line['projections']} projections "
+            f"in {line['prefills']} + {line['decode_ticks']} forwards, expected 193 x 38 = 7334",
+        )
+    require(line["tokens_equal_ideal"], "serve_planned: tokens differ from the ideal chip's")
+    require(line["logits_equal_ideal"], "serve_planned: logits differ from the ideal chip's")
+    replayed_tick_checks("planned", eng, cfg, args.seed, {}, planned_per_tick={"karatsuba2": line["projections"]})
+    del eng, ideal_logits, planned_logits
     torch.cuda.empty_cache()
 
     # xlstm-350m at full width and depth; only the tied head is programmed
@@ -1048,7 +1244,7 @@ def main() -> int:
     xparams = model_lib.init_model(xcfg, seed=args.seed, device=dev)
     torch.cuda.reset_peak_memory_stats()
     line, launches_xlstm, eng = serve_phase("serve_xlstm", xcfg, xparams, ideal, "fast", dev, args.seed + 4, True)
-    line["logits_rel_l2_vs_plain_matmul"] = reference_check(xcfg, xparams, eng, dev)
+    line["logits_rel_l2_vs_plain_matmul"] = reference_check(xcfg, xparams, eng, dev)[0]
     require(
         line["logits_rel_l2_vs_plain_matmul"] < XLSTM_REL_L2_MAX,
         f"xlstm chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain matmul model",
@@ -1066,9 +1262,10 @@ def main() -> int:
 
     by_path = dict(
         serve_ideal=launches_ideal, serve_ideal_paper_datapath=launches_planes,
-        serve_noisy=launches_noisy, serve_xlstm=launches_xlstm,
+        serve_noisy=launches_noisy, serve_planned=launches_planned, serve_xlstm=launches_xlstm,
     )
-    launches = {k: sum(n[k] for n in by_path.values()) for k in launches_xlstm}
+    # kernel launches only: the planned datapaths run no kernel of ours
+    launches = {k: sum(n[k] for n in by_path.values()) for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
     require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     print(smi, flush=True)

@@ -6,8 +6,9 @@ The store is the interchange format between the two packages: one ``.npz``
 per artifact (every non-None array leaf, exact dtypes) plus ``manifest.json``
 holding the name-keyed static data (``CrossbarSpec``, ``ADCConfig``, the
 kernel-path flag, reports, the programming ``DeviceConfig``, the service
-clock, the plan).  It is read and written with numpy and json alone; a chip
-programmed and saved by either package restores bit-for-bit in the other.
+clock, the ``LayerPlan`` as its field dict).  It is read and written with
+numpy and json alone; a chip programmed and saved by either package restores
+bit-for-bit in the other, plans included.
 
 Layout: ``<dir>/programmed/`` (unslotted), or the double-buffered
 ``<dir>/programmed.slotA`` / ``.slotB`` with the ``<dir>/programmed.ACTIVE``
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.core.adc import ADCConfig
 from repro_torch.core.crossbar import CrossbarSpec
+from repro_torch.core.planner import LayerPlan
 from repro_torch.device.models import DeviceConfig
 from repro_torch.device.programmed import (
     ARTIFACT_ARRAY_FIELDS,
@@ -34,6 +36,44 @@ from repro_torch.device.programmed import (
 )
 
 PROGRAMMED_SLOTS = ("A", "B")
+
+# the report kinds a manifest may carry, with their fields (the reference's
+# ProgramReport and RepairReport); the port keeps reports as their JSON
+_AUX_FIELDS = {
+    "ProgramReport": (
+        "iterations", "converged_frac", "mean_abs_error", "max_abs_error", "stuck_frac",
+        "per_iter_mean_error",
+    ),
+    "RepairReport": ("budget", "n_repaired", "repaired_cols", "salience_before", "salience_after"),
+}
+
+
+def _decode_aux(obj):
+    """Check an encoded report / repair value and return it as stored: None,
+    a ``tuple`` of values, or a report of a known kind with exactly its
+    fields.  Raises ``KeyError`` / ``TypeError`` / ``ValueError`` where the
+    reference's decode would."""
+    if obj is None:
+        return None
+    kind = obj["__kind__"]
+    if kind == "tuple":
+        return tuple(_decode_aux(o) for o in obj["items"])
+    if kind not in _AUX_FIELDS:
+        raise ValueError(f"unknown artifact aux kind: {kind!r}")
+    got = sorted(k for k in obj if k != "__kind__")
+    if got != sorted(_AUX_FIELDS[kind]):
+        raise TypeError(f"{kind} fields {got} != {sorted(_AUX_FIELDS[kind])}")
+    return obj
+
+
+def _decode_plan(obj: dict) -> LayerPlan:
+    """Rebuild a ``core.planner.LayerPlan`` from its manifest dict (an
+    unknown datapath or ADC mode raises ``ValueError``)."""
+    return LayerPlan(**obj)
+
+
+def _active_pointer(directory: str) -> str:
+    return os.path.join(directory, "programmed.ACTIVE")
 
 
 def _programmed_dir(directory: str, slot: Optional[str] = None) -> str:
@@ -47,7 +87,7 @@ def _programmed_dir(directory: str, slot: Optional[str] = None) -> str:
 def active_slot(directory: str) -> Optional[str]:
     """The slot the ACTIVE pointer names, or None (unslotted store)."""
     try:
-        with open(os.path.join(directory, "programmed.ACTIVE")) as f:
+        with open(_active_pointer(directory)) as f:
             slot = f.read().strip()
     except FileNotFoundError:
         return None
@@ -93,7 +133,7 @@ def save_programmed(
             "sharding": None,
             "device": (dc.asdict(art.device) if art.device is not None else None),
             "t_service_s": float(art.t_service_s),
-            "plan": art.plan,
+            "plan": (dc.asdict(art.plan) if art.plan is not None else None),
         }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -158,7 +198,7 @@ def restore_programmed(directory: str, device="cuda", slot: Optional[str] = None
             comp_scale=arrays.get("comp_scale"),
             device=(DeviceConfig(**info["device"]) if info.get("device") is not None else None),
             t_service_s=float(info.get("t_service_s", 0.0)),
-            plan=info.get("plan"),
+            plan=(_decode_plan(info["plan"]) if info.get("plan") is not None else None),
         )
         node = tree
         parts = name.split("/")

@@ -13,7 +13,10 @@ sum(x)`` is removed digitally after accumulation.
 The reference keeps a two-limb int32 accumulator; here the accumulator is a
 single int64 — the contract is the int32 output code, which is identical.
 ``crossbar_vmm`` and ``noisy_crossbar_vmm`` are the plain versions the CUDA
-kernels in ``repro_torch.kernels`` are held against.
+kernels in ``repro_torch.kernels`` are held against.  ``crossbar_accumulate``
+/ ``signed_vmm_acc`` give the exact accumulator of a sub-product of the
+divide-and-conquer datapaths (``core.karatsuba``, ``core.strassen``) and
+``requantize`` its scaling stage.
 """
 from __future__ import annotations
 
@@ -64,6 +67,16 @@ class CrossbarSpec:
         return max(1, math.ceil(math.log2(self.partial_max + 1)))
 
     @property
+    def acc_bits(self) -> int:
+        """Exact accumulator width of one row group (39 for the default)."""
+        total_max = self.partial_max * sum(
+            1 << self.base_shift(t, s)
+            for t in range(self.n_iters)
+            for s in range(self.n_slices)
+        )
+        return max(1, math.ceil(math.log2(total_max + 1)))
+
+    @property
     def weight_bias(self) -> int:
         return (1 << (self.weight_bits - 1)) if self.signed_weights else 0
 
@@ -83,6 +96,32 @@ class CrossbarSpec:
 
 
 DEFAULT_SPEC = CrossbarSpec()
+
+
+@dataclasses.dataclass
+class ConversionStats:
+    """ADC work accounting, the paper's currency for energy (python ints).
+
+    ``conversions``: ADC samples taken; ``bit_decisions``: SAR bit tests;
+    ``skipped_conversions``: samples a zero-plane-aware ADC never takes;
+    ``iterations``: 100 ns crossbar cycles.  ``a + b`` is *sequential*
+    composition (two VMMs back to back on one datapath): every field adds,
+    ``iterations`` included.
+    """
+
+    conversions: int = 0
+    bit_decisions: int = 0
+    iterations: int = 0
+    skipped_conversions: int = 0
+
+    def __add__(self, other: "ConversionStats") -> "ConversionStats":
+        return ConversionStats(
+            conversions=self.conversions + other.conversions,
+            bit_decisions=self.bit_decisions + other.bit_decisions,
+            iterations=self.iterations + other.iterations,
+            skipped_conversions=self.skipped_conversions + other.skipped_conversions,
+        )
+
 
 # partial_transform(partials (T,S,B,G,N) int64, spec) -> (partials, flags|None)
 PartialTransform = Callable[[torch.Tensor, CrossbarSpec], Tuple[torch.Tensor, Optional[torch.Tensor]]]
@@ -143,15 +182,19 @@ def _accumulate(
     return (partials << base).sum(dim=(0, 1, 3)), flags
 
 
-def _requantize(
+def requantize(
     acc: torch.Tensor,
     spec: CrossbarSpec,
-    x_sum: Optional[torch.Tensor],
-    flags: Optional[torch.Tensor],
+    x_sum: Optional[torch.Tensor] = None,
+    flags: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Scaling stage: remove the signed-weight bias, drop ``drop_lsb`` LSBs
-    (round-half-up), clamp to ``out_bits``, force ``out_max`` where flagged."""
-    if spec.signed_weights:
+    """Scaling stage of a (B, N) int64 accumulator: remove the signed-weight
+    bias ``x_sum << (weight_bits - 1)`` when ``x_sum`` (B,) is given, drop
+    ``drop_lsb`` LSBs (round-half-up), clamp to ``out_bits`` (signed or not
+    per ``spec.signed_weights``), force ``out_max`` where flagged.  An
+    accumulator that already holds the exact signed ``x @ w`` passes no
+    ``x_sum`` (the reference's ``requantize_exact_limbs``)."""
+    if x_sum is not None:
         acc = acc - (x_sum[:, None] << (spec.weight_bits - 1))
     out_min, out_max = spec.out_range
     d = spec.drop_lsb
@@ -194,7 +237,7 @@ def _datapath(
             )
         cells = cells.reshape(S, G, spec.rows, cells.shape[-1])
         acc, flags = _accumulate(planes, cells, spec, partial_transform, noisy)
-        outs.append(_requantize(acc, spec, x_sum, flags))
+        outs.append(requantize(acc, spec, x_sum, flags))
     y = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return y.reshape(batch_shape + (N,))
 
@@ -229,6 +272,61 @@ def noisy_crossbar_vmm(
     from there the digital shift-add is that of ``crossbar_vmm``.
     """
     return _datapath(x_codes, g_eff, spec, partial_transform, noisy=True)
+
+
+# float64 holds every integer below 2**53 exactly, so a product of integer
+# operands whose absolute sum stays below it is exact in any summation order
+_F64_EXACT_BITS = 53
+
+
+def crossbar_accumulate(
+    x_codes: torch.Tensor, w_codes_biased: torch.Tensor, spec: CrossbarSpec
+) -> torch.Tensor:
+    """Exact (B, N) int64 accumulator of unsigned ``x @ w`` on the datapath.
+
+    The counterpart of the reference's ``crossbar_accumulate`` with no
+    partial transform: there every column conversion is lossless, so the
+    shift-added accumulator is the exact integer product of the operands,
+    computed here as one float64 ``torch.matmul`` (float64 because CUDA has
+    no int64 matmul and float32 holds integers only to 2**24).  The operands
+    must lie in ``[0, 2**input_bits)`` and ``[0, 2**weight_bits)``; the
+    product is refused when ``K * 2**(input_bits + weight_bits)`` reaches
+    2**53, a bound taken from shapes and widths alone (no device read).
+    """
+    K = x_codes.shape[-1]
+    if K << (spec.input_bits + spec.weight_bits) >= 1 << _F64_EXACT_BITS:
+        raise ValueError(
+            f"exact product of K={K} rows of {spec.input_bits}-bit x {spec.weight_bits}-bit "
+            f"operands can pass 2**{_F64_EXACT_BITS}: float64 would round it"
+        )
+    prod = torch.matmul(x_codes.to(torch.float64), w_codes_biased.to(torch.float64))
+    return prod.to(torch.int64)
+
+
+def signed_vmm_acc(
+    x: torch.Tensor, w: torch.Tensor, spec: CrossbarSpec, signed_inputs: bool = False
+) -> torch.Tensor:
+    """Exact (B, N) int64 ``x @ w`` through the unsigned datapath by offset
+    encoding with digital correction (the reference's ``signed_vmm_limbs``):
+    with ``ox = 2**(input_bits-1)`` (signed inputs only) and ``ow`` the
+    weight bias,
+
+        sum (x+ox)(w+ow) = sum x w + ox colsum(w+ow) + ow rowsum(x+ox) - K ox ow
+
+    Used by Strassen, whose sub-products take signed operands."""
+    K = x.shape[-1]
+    ox = (1 << (spec.input_bits - 1)) if signed_inputs else 0
+    ow = spec.weight_bias
+    xu = x.to(torch.int64) + ox
+    wu = w.to(torch.int64) + ow
+    acc = crossbar_accumulate(xu, wu, spec)
+    if ox:
+        acc = acc - (wu.sum(dim=0) << (spec.input_bits - 1))
+    if ow:
+        acc = acc - (xu.sum(dim=-1, keepdim=True) << (spec.weight_bits - 1))
+    if ox and ow:
+        acc = acc + K * ox * ow
+    return acc
 
 
 def layer_scaled_spec(spec: CrossbarSpec, k: int) -> CrossbarSpec:

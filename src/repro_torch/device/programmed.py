@@ -1,12 +1,15 @@
 """Program-once crossbar compilation: frozen programmed-weight artifacts
-(counterpart of ``repro.device.programmed``; sharding, planner datapaths,
-repair and aging are not part of this slice).
+(counterpart of ``repro.device.programmed``; sharding, repair and aging are
+not part of this slice).
 
 * ``program_layer(w, spec, device_cfg, adc_cfg) -> ProgrammedLinear`` — the
   programming-time entry point: quantized cell codes, device-perturbed
   effective cells (``g_eff``), frozen scales, correction column sums.
 * ``programmed_matmul`` / ``programmed_linear`` — the steady-state forward:
   quantize input -> crossbar VMM kernel -> dequantize -> offset correction.
+  An artifact compiled under a ``core.planner.LayerPlan`` whose datapath is
+  Karatsuba or Strassen serves through ``core.karatsuba`` /
+  ``core.strassen`` instead of a kernel (``PLANNED_CALLS`` counts them).
 * ``program_model(params, ...) -> ProgrammedModel`` — walk a nested dict of
   parameters and compile every projection.  Artifacts are keyed by the joined
   parameter path ("stage0/b0/mixer/wq"); ``models.layers.crossbar_linear``
@@ -40,6 +43,9 @@ from repro_torch.core.crossbar import (
     quantize_input,
     quantize_weight,
 )
+from repro_torch.core.karatsuba import karatsuba_vmm
+from repro_torch.core.planner import ChipPlan, LayerPlan, adc_config_for
+from repro_torch.core.strassen import strassen_matmul
 from repro_torch.device import models as dm
 from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda
 from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda
@@ -50,6 +56,16 @@ ARTIFACT_ARRAY_FIELDS = (
     "w_codes", "g_eff", "w_colsum", "w_scale", "x_scale", "g_spare", "out_gather",
     "comp_scale",
 )
+
+# Calls served by a planned divide-and-conquer datapath, by datapath: these
+# run no kernel of ours (PyTorch tensor code around float64 matmuls), so
+# they are counted apart from the kernel wrappers' ``LAUNCHES``.
+PLANNED_CALLS = {"karatsuba1": 0, "karatsuba2": 0, "strassen": 0}
+
+
+def reset_planned_calls() -> None:
+    for k in PLANNED_CALLS:
+        PLANNED_CALLS[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +88,10 @@ class ProgrammedLinear:
     A *stacked* artifact carries leading layer axes on every array;
     ``layer(i)`` peels one.  Static data: ``spec`` (layer-scaled),
     ``adc_cfg`` / ``fast`` (which kernel serves it), ``device`` (the
-    ``DeviceConfig`` it was programmed with), ``t_service_s``, and
-    ``report`` / ``repair`` / ``plan`` carried as the store's plain JSON
-    values.
+    ``DeviceConfig`` it was programmed with), ``t_service_s``, ``plan``
+    (the ``core.planner.LayerPlan`` it was compiled under, or None: its
+    datapath picks the route) and ``report`` / ``repair`` carried as the
+    store's plain JSON values.
     """
 
     w_codes: torch.Tensor
@@ -92,7 +109,7 @@ class ProgrammedLinear:
     comp_scale: Optional[torch.Tensor] = None
     device: Optional[dm.DeviceConfig] = None
     t_service_s: float = 0.0
-    plan: Optional[Any] = None
+    plan: Optional[LayerPlan] = None
 
     @property
     def noisy(self) -> bool:
@@ -156,7 +173,7 @@ def program_layer(
     fast: bool = True,
     with_report: bool = False,
     chips: Optional[Tuple[int, ...]] = None,
-    plan: Optional[Any] = None,
+    plan: Optional[LayerPlan] = None,
 ) -> ProgrammedLinear:
     """Compile one (K, N) — or stacked (L, K, N) / (L, E, K, N) — weight on
     the device ``w`` lies on.
@@ -166,19 +183,37 @@ def program_layer(
     read path, and the correction column sums; deterministic in
     (w, spec, device_cfg).  Stacked leaves are compiled slab by slab so the
     programming temporaries of one slab are freed before the next.
-    ``with_report`` / ``chips`` / ``plan`` and spare-column budgets belong to
-    parts of the system that are not ported yet and raise.
+
+    ``plan`` (a ``core.planner.LayerPlan``) compiles the layer under the
+    plan compiler's choices: the ADC config is the plan's mode against the
+    layer-scaled spec, and the plan rides the artifact so
+    ``programmed_matmul`` runs its datapath.  Its spare budget is a no-op
+    unless the device has stuck cells to repair; there it raises, as does a
+    device's own ``spare_cols``: repair is not ported.  ``with_report`` and
+    ``chips`` belong to parts of the system that are not ported yet and
+    raise.
     """
-    if with_report or chips is not None or plan is not None:
-        raise NotImplementedError(
-            "program_layer(with_report= / chips= / plan=) is not ported yet"
-        )
+    if with_report or chips is not None:
+        raise NotImplementedError("program_layer(with_report= / chips=) is not ported yet")
     if device_cfg is not None and dm.wants_repair(device_cfg):
         raise NotImplementedError("spare-column repair (spare_cols > 0) is not ported yet")
+    if (
+        plan is not None
+        and plan.spare_cols > 0
+        and device_cfg is not None
+        and not device_cfg.is_ideal
+        and (device_cfg.p_stuck_on > 0 or device_cfg.p_stuck_off > 0)
+    ):
+        raise NotImplementedError(
+            f"spare-column repair (plan {plan.name!r} provisions spare_cols={plan.spare_cols} "
+            "on a device with stuck cells) is not ported yet"
+        )
     w = w.to(torch.float32)
     if w.ndim >= 3:
         parts = [
-            program_layer(w[i], spec, device_cfg, adc_cfg, x_scale=x_scale, w_scale=w_scale, fast=fast)
+            program_layer(
+                w[i], spec, device_cfg, adc_cfg, x_scale=x_scale, w_scale=w_scale, fast=fast, plan=plan
+            )
             for i in range(w.shape[0])
         ]
         stacked = {
@@ -188,6 +223,8 @@ def program_layer(
         }
         return dataclasses.replace(parts[0], **stacked)
     spec = layer_scaled_spec(spec, w.shape[0])
+    if plan is not None:
+        adc_cfg = adc_config_for(plan.adc_mode, spec)
     if w_scale is None:
         w_scale_t = torch.clamp(torch.max(torch.abs(w)), min=1e-9) / (
             (1 << (spec.weight_bits - 1)) - 1
@@ -204,7 +241,7 @@ def program_layer(
             torch.tensor(x_scale, dtype=torch.float32, device=w.device)
             if x_scale is not None else None
         ),
-        spec=spec, adc_cfg=adc_cfg, fast=fast, device=device_cfg, t_service_s=0.0,
+        spec=spec, adc_cfg=adc_cfg, fast=fast, device=device_cfg, t_service_s=0.0, plan=plan,
     )
 
 
@@ -217,8 +254,14 @@ def programmed_matmul(
 
     The dynamic input scale is ``max(x)`` over the *whole* tensor, as in the
     reference: every row's codes depend on every other row of the call.
-    On CUDA tensors the hand-written kernels serve; on CPU tensors their
-    plain versions do.
+
+    The route, in the reference's order: a noisy chip (``g_eff``) serves
+    through the noisy kernel under its (planned) ADC config; a planned
+    Karatsuba / Strassen datapath through ``core.karatsuba`` /
+    ``core.strassen`` (exact, whatever ``fast`` says); else ``fast`` picks
+    the fast kernel, and the paper-datapath kernel serves the rest.  On
+    CUDA tensors the hand-written kernels serve; on CPU tensors their plain
+    versions do.
     """
     if art.stacked:
         raise ValueError(
@@ -236,12 +279,9 @@ def programmed_matmul(
         yq = noisy_vmm_cuda(
             xq, art.g_eff, spec, adc_cfg=art.adc_cfg, skip_zero_planes=skip_zero_planes
         )
+    elif art.plan is not None and art.plan.datapath != "direct":
+        yq = _planned_vmm(xq, art)
     else:
-        datapath = art.plan.get("datapath", "direct") if art.plan is not None else "direct"
-        if datapath != "direct":
-            raise NotImplementedError(
-                f"planned datapath {datapath!r} (Karatsuba / Strassen) is not ported yet"
-            )
         yq = crossbar_vmm_cuda(
             xq, art.w_codes, spec, adc_cfg=(None if art.fast else art.adc_cfg),
             fast=art.fast, skip_zero_planes=skip_zero_planes,
@@ -252,6 +292,21 @@ def programmed_matmul(
     if art.comp_scale is not None:
         y = y * art.comp_scale
     return y
+
+
+def _planned_vmm(xq: torch.Tensor, art: ProgrammedLinear) -> torch.Tensor:
+    """Output codes of a planned divide-and-conquer datapath: exact, so
+    bit-identical to the direct datapath's.  An unknown datapath raises."""
+    datapath = art.plan.datapath
+    x2 = xq.reshape(-1, xq.shape[-1])
+    if datapath == "strassen":
+        y = strassen_matmul(x2, art.w_codes, art.spec, levels=1)
+    elif datapath in ("karatsuba1", "karatsuba2"):
+        y = karatsuba_vmm(x2, art.w_codes, art.spec, levels=art.plan.karatsuba_levels)
+    else:
+        raise ValueError(f"unknown planned datapath {datapath!r}")
+    PLANNED_CALLS[datapath] += 1
+    return y.reshape(xq.shape[:-1] + y.shape[-1:])
 
 
 def programmed_linear(
@@ -498,6 +553,7 @@ def program_model(
     fast: bool = True,
     tie_lm_head: bool = False,
     leaf_filter: Optional[Callable[[Tuple[str, ...], Any], bool]] = None,
+    plan: Optional[ChipPlan] = None,
     device="cuda",
 ) -> ProgrammedModel:
     """Walk a nested params dict and compile every matmul-shaped leaf on
@@ -505,7 +561,10 @@ def program_model(
     there).  ``tie_lm_head=True`` additionally compiles the transpose of every
     2-D ``tokens`` embedding under the embedding's own name — the (D, V)
     artifact shares the key with the (V, D) leaf and shape-checked lookup keeps
-    the two apart."""
+    the two apart.  ``plan`` (a ``core.planner.ChipPlan``, e.g. from
+    ``planner.plan_model`` on the same params) compiles each leaf under the
+    ``LayerPlan`` of its canonical name; leaves it does not cover compile
+    homogeneous."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("program_model(device='cuda') needs a CUDA device; pass device='cpu'")
@@ -517,7 +576,8 @@ def program_model(
             continue
         w = leaf.to(device)
         art = program_layer(
-            w.T.contiguous() if action == "transpose" else w, spec, device_cfg, adc_cfg, fast=fast
+            w.T.contiguous() if action == "transpose" else w, spec, device_cfg, adc_cfg, fast=fast,
+            plan=(plan.layer_for("/".join(path)) if plan is not None else None),
         )
         node = artifacts
         for p in path[:-1]:

@@ -1,10 +1,12 @@
 """Batched serving, split into a model runner and a slot scheduler
-(counterpart of ``repro.serving.engine``; mesh serving, chip plans, repair
-budgets and the chip lifecycle — age / health_check / compensate / hot_swap /
-refresh — are not ported and their arguments are not accepted).
+(counterpart of ``repro.serving.engine``; mesh serving, repair budgets and
+the chip lifecycle — age / health_check / compensate / hot_swap / refresh —
+are not ported and their arguments are not accepted).
 
 ``ModelRunner`` owns the model half: the params, the programmed crossbar chip
-(program-once at construction, or restored from an artifact store), prefill /
+(program-once at construction, optionally under a ``core.planner.ChipPlan``,
+or restored from an artifact store that first passes
+``analysis.verify_store``), prefill /
 decode and sampling.  ``ServingEngine`` is the synchronous slot scheduler on
 top: a fixed pool of ``max_batch`` cache slots; a pending request is
 prefilled alone (an attention model's prompt zero-padded to a bucket, a
@@ -29,8 +31,10 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.store import verify_store
 from repro_torch.checkpoint import restore_programmed, save_programmed
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.planner import ChipPlan
 from repro_torch.device import programmed as prog_mod
 from repro_torch.models import layers as layers_mod
 from repro_torch.models import model as model_lib
@@ -73,6 +77,7 @@ class ModelRunner:
         crossbar: Optional[CrossbarMode] = None,
         restore_artifacts: Optional[str] = None,
         verify_coverage: bool = True,
+        plan: Optional[ChipPlan] = None,
         device="cuda",
     ):
         self.device = model_lib.require_device(device)
@@ -82,6 +87,9 @@ class ModelRunner:
         self.temperature = temperature
         self._sample_gen = torch.Generator(device="cpu")
         self._sample_gen.manual_seed(seed)
+        # the chip-plan compiler's per-layer datapath / ADC choices, threaded
+        # into program_model at deploy time
+        self.plan = plan
         self.crossbar = self._program_crossbars(crossbar, restore_artifacts)
         if verify_coverage:
             self.verify_crossbar_coverage()
@@ -95,9 +103,10 @@ class ModelRunner:
     def _program_crossbars(
         self, crossbar: Optional[CrossbarMode], restore_artifacts: Optional[str] = None
     ):
-        """Program-once compilation of the model's weights (deploy time), or
-        restore of a previously saved chip: the name-keyed store is loaded
-        bit-for-bit and no ``program_layer`` call runs."""
+        """Program-once compilation of the model's weights (deploy time,
+        under ``self.plan`` when one is given), or restore of a previously
+        saved chip: the store is verified from its manifests first, then
+        loaded bit-for-bit, and no ``program_layer`` call runs."""
         if restore_artifacts is not None:
             if crossbar is None or not crossbar.enabled:
                 raise ValueError(
@@ -109,9 +118,13 @@ class ModelRunner:
                     "restore_artifacts= with prebuilt CrossbarMode.programmed "
                     "artifacts: pick one source of truth"
                 )
-            expected = prog_mod.expected_artifact_names(
-                self.params, tie_lm_head=self._tie_lm_head
-            )
+            if self.plan is not None:
+                raise ValueError(
+                    "plan= cannot replan a restored chip: the datapath / ADC "
+                    "/ spare choices were baked in when the artifacts were "
+                    "programmed — reprogram with the desired plan"
+                )
+            expected = self._verify_store(restore_artifacts)
             prog = restore_programmed(restore_artifacts, device=self.device)
             # a stale or mismatched store would resolve no artifacts and
             # degrade every projection to per-call reprogramming: cross-check
@@ -136,9 +149,32 @@ class ModelRunner:
             device_cfg=crossbar.device,
             fast=crossbar.fast,
             tie_lm_head=self._tie_lm_head,
+            plan=self.plan,
             device=self.device,
         )
         return dataclasses.replace(crossbar, programmed=prog)
+
+    def _verify_store(self, directory: str) -> Dict[str, tuple]:
+        """Fail-fast static verification of a store before any array loads:
+        a corrupt slot pointer, an undecodable spec or plan, inconsistent
+        leaf shapes or a wrong name set is refused with the failing rule
+        named.  Orphaned leaves (a store that is a superset of the model)
+        are left to ``verify_crossbar_coverage``.  Returns the expected
+        name -> shape map for the binding cross-check."""
+        expected = prog_mod.expected_artifact_names(self.params, tie_lm_head=self._tie_lm_head)
+        report = verify_store(directory, expected=expected)
+        fatal = [
+            f for f in report.findings
+            if not (f.rule == "name-set" and "orphaned leaf" in f.message)
+        ]
+        if fatal:
+            report.findings[:] = fatal
+            raise ValueError(
+                "restore_artifacts= store failed static verification "
+                "(repro_torch.analysis.verify_store): it is internally "
+                "inconsistent or does not match this model —\n" + report.summary()
+            )
+        return expected
 
     def verify_crossbar_coverage(self) -> None:
         """Structural name-set check at construction: one real 4-token
@@ -280,6 +316,7 @@ class ServingEngine:
         crossbar: Optional[CrossbarMode] = None,
         restore_artifacts: Optional[str] = None,
         verify_coverage: bool = True,
+        plan: Optional[ChipPlan] = None,
         rid_start: int = 0,
         device="cuda",
     ):
@@ -292,6 +329,7 @@ class ServingEngine:
             crossbar=crossbar,
             restore_artifacts=restore_artifacts,
             verify_coverage=verify_coverage,
+            plan=plan,
             device=device,
         )
         self.max_batch = max_batch

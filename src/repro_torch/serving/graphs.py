@@ -28,12 +28,14 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import programmed as prog_mod
 from repro_torch.kernels import crossbar_vmm as kvmm
 from repro_torch.kernels import slstm_scan as kscan
 from repro_torch.models import model as model_lib
 
-# every kernel wrapper's counters, in one order
-_COUNTERS = (kvmm.LAUNCHES, kvmm.PLAIN_CALLS, kscan.LAUNCHES, kscan.PLAIN_CALLS)
+# every kernel wrapper's counters and the planned datapaths' call counter,
+# in one order
+_COUNTERS = (kvmm.LAUNCHES, kvmm.PLAIN_CALLS, kscan.LAUNCHES, kscan.PLAIN_CALLS, prog_mod.PLANNED_CALLS)
 
 
 def _read_counters() -> List[Dict[str, int]]:
@@ -46,7 +48,8 @@ def _restore_counters(snapshot: List[Dict[str, int]]) -> None:
 
 
 def credit_launches(captured: List[Dict[str, int]]) -> None:
-    """Add one replay's kernel launches to the wrappers' counters.
+    """Add one replay's kernel launches to the wrappers' counters (and its
+    planned divide-and-conquer calls to ``PLANNED_CALLS``).
 
     A wrapper counts a launch when its Python body runs.  For a captured
     tick that happens once, at capture, where nothing is launched; a replay

@@ -31,6 +31,8 @@ def test_port_has_the_expected_modules():
         "convert.py", "models/layers.py", "models/attention.py", "models/model.py",
         "serving/engine.py", "serving/graphs.py", "configs/smollm_360m.py", "configs/xlstm_350m.py",
         "kernels/slstm_scan.py", "models/xlstm.py",
+        "core/karatsuba.py", "core/strassen.py", "core/planner.py", "core/workloads.py",
+        "core/arch.py", "core/mapper.py", "core/energy.py", "analysis/store.py",
     ):
         assert want in names, want
     for src in ("crossbar_vmm.cu", "slstm_scan.cu"):

@@ -303,8 +303,11 @@ def test_unported_features_raise_instead_of_degrading():
         tprog.program_layer(w, with_report=True)
     with pytest.raises(NotImplementedError):
         tprog.program_layer(w, chips=(0,))
-    with pytest.raises(NotImplementedError):
-        tprog.program_layer(w, plan={"datapath": "strassen"})
+    # a plan's spare budget on a device with stuck cells needs repair
+    from repro_torch.core.planner import LayerPlan
+
+    with pytest.raises(NotImplementedError, match="repair"):
+        tprog.program_layer(w, device_cfg=TDev(p_stuck_on=0.01), plan=LayerPlan(name="w", spare_cols=2))
     with pytest.raises(NotImplementedError):
         tprog.program_layer(w, device_cfg=TDev(p_stuck_on=0.01, spare_cols=2))
     with pytest.raises(NotImplementedError):
@@ -312,10 +315,13 @@ def test_unported_features_raise_instead_of_degrading():
                                  TDev(p_stuck_on=0.01, spare_cols=2), repair=True)
     art = tprog.program_layer(torch.ones((8, 4)))
     import dataclasses
-    planned = dataclasses.replace(art, plan={"datapath": "karatsuba", "karatsuba_levels": 1})
-    with pytest.raises(NotImplementedError, match="karatsuba"):
+    import types
+
+    # an unknown planned datapath raises; it is never served by the fast kernel
+    planned = dataclasses.replace(art, plan=types.SimpleNamespace(datapath="karatsuba", karatsuba_levels=1))
+    with pytest.raises(ValueError, match="karatsuba"):
         tprog.programmed_matmul(torch.ones((2, 8)), planned)
-    direct = dataclasses.replace(art, plan={"datapath": "direct"})
+    direct = dataclasses.replace(art, plan=LayerPlan(name="w", datapath="direct"))
     assert torch.equal(tprog.programmed_matmul(torch.ones((2, 8)), direct),
                        tprog.programmed_matmul(torch.ones((2, 8)), art))
     with pytest.raises(ValueError, match="stacked"):

@@ -177,7 +177,8 @@ def test_restore_refusals(tiny_lm, jax_stores, tmp_path):
             tcfg, tparams, restore_artifacts=jax_stores["ideal"],
             crossbar=CrossbarMode(enabled=True, programmed=chip), **kw,
         )
-    with pytest.raises(FileNotFoundError):
+    # a directory without a store fails verification before anything loads
+    with pytest.raises(ValueError, match=r"\[store\] no programmed-artifact store"):
         ServingEngine(tcfg, tparams, restore_artifacts=str(tmp_path), crossbar=CrossbarMode(enabled=True), **kw)
     # a store from another model: names or shapes do not match
     import dataclasses
