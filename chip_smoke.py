@@ -11,7 +11,9 @@ Phases (one JSON line each; any failure is an uncaught exception):
                bit-identical (the scan within a float32 tolerance), timed with
                CUDA events beside its bound and on a cold L2; the three VMM
                kernels also at their tile edges, ragged N and K and extreme
-               codes or cells (the fast one past its int32 fold too), the
+               codes or cells (the fast one past its int32 fold too, and
+               timed at every projection and head shape of the three dense
+               configs; the paper and noisy ones at K = 4096 and 14336), the
                scan at ragged dh, dh = 2048, 5 and 9 batch rows and one head,
                each scan case with the launch plan it ran
   planned_datapaths  the planned divide-and-conquer datapaths (Karatsuba
@@ -39,11 +41,24 @@ Phases (one JSON line each; any failure is an uncaught exception):
                from an ideal programmed chip: the tied head on the fast
                kernel, every sLSTM recurrence on the scan kernel (12 launches
                per forward), incl. a store save -> restore round trip
+  serve_gemma2, serve_minitron, serve_starcoder2  gemma2-9b (post-norm
+               blocks, local / global attention, softcaps, a scaled
+               embedding), minitron-4b (untied head) and starcoder2-3b at full
+               width and depth from ideal chips the engine programs: 253 / 193
+               / 181 fast-kernel launches a forward (6 a layer + the head),
+               asserted, and no other kernel; the logits within each config's
+               rel-L2 gate of the plain-matmul model (``REL_L2_MAX``); a store
+               save -> ``verify_store`` -> restore round trip on a copy of the
+               chip cut to 2 layers at full width (the full gemma2-9b store
+               would be 37 GB of npz)
                Every serve phase runs its decode ticks by replaying the
                pool's captured CUDA graph (``graph_replays`` = ``decode_ticks``,
-               ``capture_seconds``); prefills stay eager.
+               ``capture_seconds``); prefills stay eager, and
+               ``prefill_seconds`` times them (each admission: the prefill and
+               the copy into the slot) apart from the ticks.
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
-               (ideal, paper, noisy, planned, xlstm): device busy time, launches per
+               (ideal, paper, noisy, planned, xlstm, gemma2, minitron,
+               starcoder2): device busy time, launches per
                tick, the heaviest kernels, and each of our kernels' device
                time and calls a tick inside the replays, held equal to the
                launches the replays credited to the wrappers' counters
@@ -60,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -106,6 +122,32 @@ STUCK_FREE_DEVICE = DeviceConfig(sigma=0.02)
 PLANNED = ("karatsuba1", "karatsuba2", "strassen")
 MAIN_SHAPES = [(960, 960), (960, 320), (960, 5120), (2560, 960), (960, 49152)]
 XLSTM_HEAD = (1024, 50304)  # the tied head of xlstm-350m, K x N
+# the three dense configs served from an ideal chip: (phase, arch); and, K x
+# N, each projection shape they add to the fast kernel's main path (wq, wk /
+# wv, wo, wi, the FFN's wo; a shape another config already has is listed
+# once) and their heads, each held at M = 4 (a decode tick) and M = 32 (a
+# prefill bucket), gemma2's 256000-wide head at M = 4 only
+DENSE_SERVES = (("serve_gemma2", "gemma2-9b"), ("serve_minitron", "minitron-4b"), ("serve_starcoder2", "starcoder2-3b"))
+DENSE_SHAPES = {
+    "gemma2-9b": [(3584, 4096), (3584, 2048), (4096, 3584), (3584, 28672), (14336, 3584)],
+    "minitron-4b": [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072)],
+    "starcoder2-3b": [(3072, 256), (3072, 12288), (12288, 3072)],
+}
+DENSE_HEADS = {"gemma2-9b": (3584, 256000), "minitron-4b": (3072, 256000), "starcoder2-3b": (3072, 49152)}
+# K of the deepest projections of gemma2 (its attention wo, its FFN wo),
+# where the paper and noisy kernels are held to their plain versions at N =
+# 3584, M = 4 (off this slice's served path: untimed)
+DEEP_K = (4096, 14336)
+# widest column block of one plain-version call: its int64 copies of a
+# 256000-wide head would take tens of GB (test-only code; every output
+# column depends on its own weight column alone)
+PLAIN_N_CHUNK = 16384
+# the rel-L2 gate of each ideal chip's logits against the plain-matmul
+# model on one 16-token prompt (PERF.md §2 says how each was set)
+REL_L2_MAX = {"smollm-360m": 0.25, "gemma2-9b": 0.6, "minitron-4b": 0.45, "starcoder2-3b": 0.25}
+# the store round trip of a dense chip runs on a copy of it cut to this
+# depth at full width: a full gemma2-9b store is 37 GB of npz
+STORE_CHECK_LAYERS = 2
 # (B, S) of the scan on the xlstm path: a decode tick of the slot pool, one
 # decode row, and prefills of 32 / 48 (the longest prompt served) / 256 tokens
 SCAN_SHAPES = [(4, 1), (1, 1), (1, 32), (1, 48), (1, 256)]
@@ -317,7 +359,10 @@ def run_case(kind, label, M, K, N, spec, adc_cfg, sparse, skip, seed, dev, timed
     else:
         fast = kind == "fast"
         kernel = lambda: crossbar_vmm_cuda(x, w, spec, adc_cfg, fast=fast, skip_zero_planes=skip)
-        plain = lambda: crossbar_vmm_plain(x, w, spec, adc_cfg, fast=fast)
+        plain = lambda: torch.cat([
+            crossbar_vmm_plain(x, w[:, n0:n0 + PLAIN_N_CHUNK], spec, adc_cfg, fast=fast)
+            for n0 in range(0, N, PLAIN_N_CHUNK)
+        ], dim=-1)
     y = kernel()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -397,7 +442,24 @@ def kernels_phase(dev, quick: bool):
                     kind, f"{tag}/xlstm_head", M, *XLSTM_HEAD, layer_scaled_spec(base, XLSTM_HEAD[0]),
                     cfg, sparse=False, skip=True, seed=seed, dev=dev, timed=True,
                 ))
+            # the dense configs' projections and heads (seeds of their own:
+            # the other cases keep theirs)
+            for arch, shapes in DENSE_SHAPES.items():
+                for K, N in (shapes[:1] if quick else shapes + [DENSE_HEADS[arch]]):
+                    for M in ((4,) if quick or (K, N) == DENSE_HEADS["gemma2-9b"] else (4, 32)):
+                        cases.append(run_case(
+                            kind, f"{tag}/{arch}", M, K, N, layer_scaled_spec(base, K), cfg,
+                            sparse=False, skip=True, seed=7000 + len(cases), dev=dev, timed=True,
+                        ))
+                        torch.cuda.empty_cache()
             seed = fast_edge_cases(cases, base, seed, dev, quick)
+        if tag == "safe_adaptive_signed" and not quick:
+            # off this slice's path: their deepest K loops yet, untimed
+            for K in DEEP_K:
+                cases.append(run_case(
+                    kind, f"{tag}/deep_k", 4, K, 3584, layer_scaled_spec(base, K), cfg,
+                    sparse=False, skip=True, seed=8000 + len(cases), dev=dev, timed=False,
+                ))
         if kind == "noisy":
             seed = mma_edge_cases(kind, cases, tag, base, cfg, seed, dev, quick)
         if kind == "planes":  # seeds of their own: the other cases keep theirs
@@ -776,25 +838,41 @@ def make_requests(cfg, seed, n=6):
 
 def drive(eng, prompts, max_new):
     """Submit, then step until drained; returns (requests, prefills, ticks,
-    seconds, pure decode-tick seconds, tokens appended by decode ticks)."""
+    seconds, pure decode-tick seconds, tokens appended by decode ticks,
+    seconds of the admissions: each request's eager prefill and the copy of
+    its cache into its slot, timed apart from the ticks)."""
     for p in prompts:
         eng.submit(p, max_new_tokens=max_new)
     ticks = decoded = 0
-    tick_s = []
+    tick_s, admit_s = [], []
+    runner = eng.runner
+
+    def timed_admit(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = type(runner).admit_slot(runner, *args)
+        torch.cuda.synchronize()
+        admit_s.append(time.perf_counter() - t)
+        return out
+
+    runner.admit_slot = timed_admit
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    while eng.pending or any(s is not None for s in eng.slots):
-        admitted = len(eng.pending)
-        t1 = time.perf_counter()
-        n = eng.step()
-        if n and len(eng.pending) == admitted:  # a pure decode tick
-            tick_s.append(time.perf_counter() - t1)
-        ticks += 1 if n else 0
-        decoded += n
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    try:
+        while eng.pending or any(s is not None for s in eng.slots):
+            admitted = len(eng.pending)
+            t1 = time.perf_counter()
+            n = eng.step()
+            if n and len(eng.pending) == admitted:  # a pure decode tick
+                tick_s.append(time.perf_counter() - t1)
+            ticks += 1 if n else 0
+            decoded += n
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        del runner.admit_slot
     reqs = eng.run_until_done(max_ticks=0)  # the completion ledger
-    return reqs, len(prompts), ticks, seconds, tick_s, decoded
+    return reqs, len(prompts), ticks, seconds, tick_s, decoded, sum(admit_s)
 
 
 def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check, plan=None):
@@ -814,7 +892,7 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check,
     kvmm.reset_counters()  # counts are read for the serving run alone
     kscan.reset_counters()
     tprog.reset_planned_calls()
-    reqs, prefills, ticks, seconds, tick_s, decoded = drive(eng, prompts, max_new=16)
+    reqs, prefills, ticks, seconds, tick_s, decoded, prefill_s = drive(eng, prompts, max_new=16)
     launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES, **tprog.PLANNED_CALLS)
     graph = eng.runner.decode_graph
     require(
@@ -856,30 +934,122 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check,
         slstm_layers=n_scan, first_token_at_prefill=recurrent,
         launches=launches, plain_calls=plain_calls, misses=0,
         program_seconds=program_s, serve_seconds=seconds, tokens_per_s=n_tok / seconds,
+        prefill_seconds=prefill_s,
         decode_tick_ms_median=(1e3 * statistics.median(tick_s) if tick_s else None),
         graph_replays=graph.replays, capture_seconds=graph.capture_seconds,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, tokens=tokens,
     )
     if restore_check:
-        with tempfile.TemporaryDirectory() as d:
-            t0 = time.perf_counter()
-            eng.save_artifacts(d)
-            save_s = time.perf_counter() - t0
-            expected = tprog.expected_artifact_names(params, tie_lm_head=eng.runner._tie_lm_head)
-            report = verify_store(d, expected=expected)
-            require(report.ok, f"{phase}: the saved chip fails verify_store: {report.summary()}")
-            line.update(verify_store_findings=len(report.findings), verified_artifacts=report.n_artifacts)
-            t0 = time.perf_counter()
-            eng2 = ServingEngine(
-                cfg, params, max_batch=4, max_seq=256, device=dev, restore_artifacts=d,
-                crossbar=CrossbarMode(enabled=True, strict=True, fast=crossbar.fast, device=crossbar.device),
-            )
-            restore_s = time.perf_counter() - t0
-        reqs2 = drive(eng2, prompts, max_new=16)[0]
-        require([r.generated for r in reqs2] == tokens, "restored chip served different tokens")
-        line.update(restore_identical=True, save_seconds=save_s, restore_seconds=restore_s)
-        del eng2
+        line.update(store_round_trip(phase, cfg, params, eng, prompts, tokens, dev))
     return line, launches, eng
+
+
+def store_round_trip(phase, cfg, params, eng, prompts, tokens, dev):
+    """Save ``eng``'s chip, pass it through ``verify_store``, restore it into
+    a new engine and serve ``prompts`` again: the same ``tokens``."""
+    crossbar = eng.crossbar
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        eng.save_artifacts(d)
+        save_s = time.perf_counter() - t0
+        expected = tprog.expected_artifact_names(params, tie_lm_head=eng.runner._tie_lm_head)
+        report = verify_store(d, expected=expected)
+        require(report.ok, f"{phase}: the saved chip fails verify_store: {report.summary()}")
+        t0 = time.perf_counter()
+        eng2 = ServingEngine(
+            cfg, params, max_batch=4, max_seq=256, device=dev, restore_artifacts=d,
+            crossbar=CrossbarMode(enabled=True, strict=True, fast=crossbar.fast, device=crossbar.device),
+        )
+        restore_s = time.perf_counter() - t0
+    reqs2 = drive(eng2, prompts, max_new=16)[0]
+    require([r.generated for r in reqs2] == tokens, f"{phase}: the restored chip served different tokens")
+    del eng2
+    return dict(
+        verify_store_findings=len(report.findings), verified_artifacts=report.n_artifacts,
+        restore_identical=True, save_seconds=save_s, restore_seconds=restore_s,
+    )
+
+
+def depth_config(cfg, layers):
+    """A one-stage config cut to its first ``layers`` layers (whole repeats
+    of the stage's block pattern), at full width."""
+    require(len(cfg.stages) == 1, f"{cfg.name}: a depth cut takes one stage")
+    spec = cfg.stages[0]
+    repeats = layers // len(spec.kinds)
+    return dataclasses.replace(
+        cfg, n_layers=repeats * len(spec.kinds), stages=(StageSpec(kinds=spec.kinds, repeats=repeats, moe=spec.moe),)
+    )
+
+
+def cut_depth(cfg, params, chip, layers):
+    """A copy of a one-stage model and its programmed chip cut to its first
+    ``layers`` layers: the stacked leaves and artifacts are sliced (views,
+    no copies)."""
+    cut_cfg = depth_config(cfg, layers)
+    repeats = cut_cfg.stages[0].repeats
+
+    def cut(tree, fn):
+        if isinstance(tree, dict):
+            return {k: cut(v, fn) for k, v in tree.items()}
+        return fn(tree)
+
+    cut_params = {k: (cut(v, lambda t: t[:repeats]) if k == "stage0" else v) for k, v in params.items()}
+    cut_arts = {
+        k: (cut(v, lambda a: a.map_arrays(lambda t: t[:repeats])) if k == "stage0" else v)
+        for k, v in chip.artifacts.items()
+    }
+    return cut_cfg, cut_params, tprog.ProgrammedModel(cut_arts)
+
+
+def serve_dense(phase, arch, dev, seed, quick):
+    """One dense config at full width (and depth, or 2 layers under
+    ``--quick``) from an ideal chip the engine programs: every projection on
+    the fast kernel (6 a layer + the head, each forward), the decode ticks
+    replayed, the logits within the config's rel-L2 gate of the plain-matmul
+    model, and a store round trip on a copy of the chip cut to
+    ``STORE_CHECK_LAYERS`` layers.  Returns the serving run's launch counts."""
+    cfg = get_config(arch)
+    if quick:
+        cfg = depth_config(cfg, 2)
+    params = model_lib.init_model(cfg, seed=seed, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ideal = CrossbarMode(enabled=True, strict=True)
+    line, launches, eng = serve_phase(phase, cfg, params, ideal, "fast", dev, seed + 1, False)
+    want = 6 * cfg.n_layers + 1
+    forwards = line["prefills"] + line["decode_ticks"]
+    require(
+        line["projections"] == want and launches["fast"] == want * forwards,
+        f"{phase}: {launches['fast']} fast-kernel launches of {line['projections']} projections in "
+        f"{forwards} forwards, expected {want} x {forwards}",
+    )
+    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)[0]
+    line["rel_l2_gate"] = REL_L2_MAX[arch]
+    require(
+        line["logits_rel_l2_vs_plain_matmul"] < REL_L2_MAX[arch],
+        f"{phase}: the chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain "
+        f"matmul model, gate {REL_L2_MAX[arch]}",
+    )
+    # the store round trip on a copy of the chip cut to STORE_CHECK_LAYERS
+    cut_cfg, cut_params, cut_chip = cut_depth(cfg, params, eng.programmed, STORE_CHECK_LAYERS)
+    cut_eng = ServingEngine(
+        cut_cfg, cut_params, max_batch=4, max_seq=256, device=dev,
+        crossbar=dataclasses.replace(ideal, programmed=cut_chip),
+    )
+    prompts = make_requests(cfg, seed + 1)
+    cut_tokens = [r.generated for r in drive(cut_eng, prompts, max_new=16)[0]]
+    line["store_round_trip"] = dict(
+        layers=cut_cfg.n_layers, width="full",
+        why="a copy of the served chip cut in depth: the full store would be "
+            f"{sum(a.w_codes.numel() for a in eng.programmed.by_name.values()) * 4 / 1e9:.1f} GB of npz",
+        **store_round_trip(phase, cut_cfg, cut_params, cut_eng, prompts, cut_tokens, dev),
+    )
+    del cut_eng, cut_chip, cut_params
+    emit(line)
+    replayed_tick_checks(phase.replace("serve_", ""), eng, cfg, seed, {"fast_kernel": line["projections"]})
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def tick_profile(phase, eng, prompts, ticks=3):
@@ -1151,7 +1321,7 @@ def main() -> int:
     line["logits_rel_l2_vs_plain_matmul"], ideal_logits = reference_check(cfg, params, eng, dev)
     ideal_tokens = line["tokens"]
     require(
-        line["logits_rel_l2_vs_plain_matmul"] < 0.25,
+        line["logits_rel_l2_vs_plain_matmul"] < REL_L2_MAX["smollm-360m"],
         f"ideal chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain matmul model",
     )
     emit(line)
@@ -1257,13 +1427,17 @@ def main() -> int:
         )
     emit(line)
     replayed_tick_checks("xlstm", eng, xcfg, args.seed, {SCAN_KERNEL: line["slstm_layers"], "fast_kernel": 1})
-    del eng
+    del eng, xparams
+    gc.collect()
     torch.cuda.empty_cache()
 
     by_path = dict(
         serve_ideal=launches_ideal, serve_ideal_paper_datapath=launches_planes,
         serve_noisy=launches_noisy, serve_planned=launches_planned, serve_xlstm=launches_xlstm,
     )
+    # gemma2-9b, minitron-4b and starcoder2-3b at full width from ideal chips
+    for i, (phase, arch) in enumerate(DENSE_SERVES):
+        by_path[phase] = serve_dense(phase, arch, dev, args.seed + 10 * (i + 1), args.quick)
     # kernel launches only: the planned datapaths run no kernel of ours
     launches = {k: sum(n[k] for n in by_path.values()) for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
     require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")

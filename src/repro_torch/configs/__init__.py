@@ -11,5 +11,8 @@ from repro_torch.configs.base import (  # noqa: F401
 
 from repro_torch.configs import xlstm_350m  # noqa: F401
 from repro_torch.configs import smollm_360m  # noqa: F401
+from repro_torch.configs import gemma2_9b  # noqa: F401
+from repro_torch.configs import minitron_4b  # noqa: F401
+from repro_torch.configs import starcoder2_3b  # noqa: F401
 
-ALL_ARCHS = ["xlstm-350m", "smollm-360m"]
+ALL_ARCHS = ["xlstm-350m", "smollm-360m", "gemma2-9b", "minitron-4b", "starcoder2-3b"]

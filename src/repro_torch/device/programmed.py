@@ -181,8 +181,9 @@ def program_layer(
     Runs every weight-only stage exactly once: the ``max |w|`` scale
     reduction, weight quantization, the device fault draw + write-verify +
     read path, and the correction column sums; deterministic in
-    (w, spec, device_cfg).  Stacked leaves are compiled slab by slab so the
-    programming temporaries of one slab are freed before the next.
+    (w, spec, device_cfg).  Stacked leaves are compiled slab by slab into
+    the stacked arrays, so the programming temporaries of one slab are freed
+    before the next and no whole-stack copy is made.
 
     ``plan`` (a ``core.planner.LayerPlan``) compiles the layer under the
     plan compiler's choices: the ADC config is the plan's mode against the
@@ -208,20 +209,27 @@ def program_layer(
             f"spare-column repair (plan {plan.name!r} provisions spare_cols={plan.spare_cols} "
             "on a device with stuck cells) is not ported yet"
         )
-    w = w.to(torch.float32)
     if w.ndim >= 3:
-        parts = [
-            program_layer(
+        # one slab at a time, each written into its place in the stacked
+        # arrays: the float32 copy and the temporaries are one slab's, never
+        # the whole stack's (gemma2-9b's ``wi`` stack is 2.2 B weights)
+        stacked: Dict[str, torch.Tensor] = {}
+        first = None
+        for i in range(w.shape[0]):
+            part = program_layer(
                 w[i], spec, device_cfg, adc_cfg, x_scale=x_scale, w_scale=w_scale, fast=fast, plan=plan
             )
-            for i in range(w.shape[0])
-        ]
-        stacked = {
-            f: torch.stack([getattr(p, f) for p in parts])
-            for f in ARTIFACT_ARRAY_FIELDS
-            if getattr(parts[0], f) is not None
-        }
-        return dataclasses.replace(parts[0], **stacked)
+            for f in ARTIFACT_ARRAY_FIELDS:
+                a = getattr(part, f)
+                if a is None:
+                    continue
+                if f not in stacked:
+                    stacked[f] = torch.empty((w.shape[0],) + tuple(a.shape), dtype=a.dtype, device=a.device)
+                stacked[f][i] = a
+            if first is None:
+                first = part
+        return dataclasses.replace(first, **stacked)
+    w = w.to(torch.float32)
     spec = layer_scaled_spec(spec, w.shape[0])
     if plan is not None:
         adc_cfg = adc_config_for(plan.adc_mode, spec)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 from typing import Any, Dict, Optional, Tuple
 
@@ -63,10 +64,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """``d_model**0.5`` rounded to ``dtype``, as a Python float: the
+    reference multiplies by the scale cast to the embedding's dtype (59.75 in
+    bfloat16 at d_model 3584, where the unrounded float would change the
+    products).  Worked out once per dtype, so a call builds no tensor and
+    copies nothing from the host (a CUDA-graph capture refuses such a copy)."""
+    return float(torch.tensor(d_model**0.5, dtype=dtype))
+
+
 def embed(params, tokens: torch.Tensor, scale: bool, d_model: int) -> torch.Tensor:
     x = params["tokens"][tokens]
     if scale:
-        x = x * torch.tensor(d_model**0.5, dtype=x.dtype, device=x.device)
+        x = x * _embed_scale(d_model, x.dtype)
     return x
 
 

@@ -55,11 +55,9 @@ def _require_ported(kind: str) -> None:
 
 def _require_ported_config(cfg: ModelConfig) -> None:
     """Refuse what the blocks would otherwise run wrong or fail on: a config
-    with post-norm blocks, MoE FFNs or a non-token front end (a parameter
-    tree carried across from the reference never passes through
-    ``init_model``, so every entry point checks)."""
-    if cfg.post_norm:
-        raise NotImplementedError(f"{cfg.name}: post-norm blocks are not ported yet")
+    with MoE FFNs or a non-token front end (a parameter tree carried across
+    from the reference never passes through ``init_model``, so every entry
+    point checks)."""
     if cfg.moe_experts or any(any(spec.moe) for spec in cfg.stages):
         raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
     if cfg.frontend != "token":
@@ -80,7 +78,9 @@ def _init_block(cfg: ModelConfig, kind: str, repeats: int, gen, dtype, device) -
     leading axis.  Matrices draw normal(0, fan_in**-0.5) except the xLSTM
     gate projection (0.02) and recurrent matrices (dh**-0.5), as in the
     reference; norm scales are zero (``rms_norm`` multiplies by ``1 +
-    scale``).  xLSTM blocks carry their own projections and have no FFN."""
+    scale``).  xLSTM blocks carry their own projections and have no FFN.  A
+    post-norm config (gemma2) adds ``norm1_post`` after the mixer and
+    ``norm2_post`` after the FFN."""
     _require_ported(kind)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L = repeats
@@ -103,11 +103,18 @@ def _init_block(cfg: ModelConfig, kind: str, repeats: int, gen, dtype, device) -
         mixer["out_proj"] = mat(din, d)
     else:
         mixer = {"wq": mat(d, h * dh), "wk": mat(d, kv * dh), "wv": mat(d, kv * dh), "wo": mat(h * dh, d)}
-    block: Dict[str, Any] = {"norm1": torch.zeros((L, d), dtype=dtype, device=device), "mixer": mixer}
+    def zeros() -> torch.Tensor:
+        return torch.zeros((L, d), dtype=dtype, device=device)
+
+    block: Dict[str, Any] = {"norm1": zeros(), "mixer": mixer}
+    if cfg.post_norm:
+        block["norm1_post"] = zeros()
     if cfg.d_ff and kind not in _XLSTM_KINDS:
         wide = 2 * cfg.d_ff if cfg.mlp_kind in ("swiglu", "geglu") else cfg.d_ff
-        block["norm2"] = torch.zeros((L, d), dtype=dtype, device=device)
+        block["norm2"] = zeros()
         block["ffn"] = {"wi": mat(d, wide), "wo": mat(cfg.d_ff, d)}
+        if cfg.post_norm:
+            block["norm2_post"] = zeros()
     return block
 
 
@@ -183,11 +190,15 @@ def _apply_block(params, x, cfg: ModelConfig, kind: str, positions, cache_entry=
             h, new_entry = attn_mod.attention_block(
                 params["mixer"], h, cfg, kind, positions, cache_entry, decode_pos
             )
+    if cfg.post_norm:
+        h = rms_norm(h, params["norm1_post"], cfg.norm_eps)
     x = x + h
     if "norm2" in params:
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
         with name_scope("ffn"):
             h = mlp(params["ffn"], h, cfg.mlp_kind)
+        if cfg.post_norm:
+            h = rms_norm(h, params["norm2_post"], cfg.norm_eps)
         x = x + h
     return x, new_entry
 

@@ -30,6 +30,7 @@ def test_port_has_the_expected_modules():
         "device/models.py", "device/programmed.py", "checkpoint/checkpoint.py",
         "convert.py", "models/layers.py", "models/attention.py", "models/model.py",
         "serving/engine.py", "serving/graphs.py", "configs/smollm_360m.py", "configs/xlstm_350m.py",
+        "configs/gemma2_9b.py", "configs/minitron_4b.py", "configs/starcoder2_3b.py",
         "kernels/slstm_scan.py", "models/xlstm.py",
         "core/karatsuba.py", "core/strassen.py", "core/planner.py", "core/workloads.py",
         "core/arch.py", "core/mapper.py", "core/energy.py", "analysis/store.py",

@@ -1,6 +1,5 @@
 """PyTorch port: the model's entry points refuse configs whose blocks are not
-ported (post-norm, MoE, an embedding front end) instead of running them
-wrong.  Each config is the JAX package's reduced config carried into the
+ported (MoE, an embedding front end) instead of running them wrong.  Each config is the JAX package's reduced config carried into the
 port's config class, with the JAX package's parameter tree carried across
 through ``params_from_numpy`` (that tree never passes through the port's
 ``init_model``)."""
@@ -19,7 +18,6 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import model as TM
 
 CASES = {
-    "post_norm": ("gemma2-9b", "post-norm"),
     "moe": ("kimi-k2-1t-a32b", "MoE"),
     "embed_frontend": ("musicgen-large", "front end"),
 }
@@ -48,7 +46,6 @@ def carried(request):
 def test_the_carried_config_is_the_reference_config(carried):
     kind, tcfg, *_ = carried
     assert {
-        "post_norm": tcfg.post_norm,
         "moe": bool(tcfg.moe_experts) and any(any(s.moe) for s in tcfg.stages),
         "embed_frontend": tcfg.frontend == "embed",
     }[kind]
