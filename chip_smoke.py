@@ -37,6 +37,25 @@ Phases (one JSON line each; any failure is an uncaught exception):
                projection): no VMM kernel runs, tokens and one prompt's
                logits equal to the ideal chip's, and the saved chip passes
                ``verify_store`` before it is restored
+  serve_planned_repaired  the planned chip on a device with stuck cells
+               (NOISY_DEVICE): ``plan_model(device=...)`` provisions spare
+               columns, the repair planner programs them, and every projection
+               serves on the noisy kernel (7334 launches asserted, no planned
+               call); the repair totals, the repair planning's seconds apart
+               from the programming's, and the logits' rel-L2 to the
+               plain-matmul model (printed, not gated)
+  repair_recovery  a 2-layer full-width copy on RECOVERY_DEVICE: logits MSE
+               of a stuck-free chip, a faulty one without spares and one with
+               the plan's spares; ``recovered_frac`` > 0 asserted; and one
+               repaired 960 x 5120 slab programmed on the card and on the CPU
+               from the same fields, plan and cells ``torch.equal``
+  lifecycle    smollm-360m at full width and depth on LIFECYCLE_DEVICE, mid
+               run: age (the captured tick dropped and captured again, 3
+               replayed ticks bit-equal to eager on the aged chip, the health
+               monitor's worst layer up), compensate (worst down, >= 0.5 of
+               the probe MSE recovered), refresh in memory (the fresh program;
+               the run's tokens those of an uninterrupted run); then
+               ``refresh(directory)`` twice on a 2-layer copy (slots A, B)
   serve_xlstm  xlstm-350m at full width and depth (24 layers, mLSTM / sLSTM)
                from an ideal programmed chip: the tied head on the fast
                kernel, every sLSTM recurrence on the scan kernel (12 launches
@@ -96,8 +115,10 @@ from repro_torch.core.crossbar import CrossbarSpec, DEFAULT_SPEC, layer_scaled_s
 from repro_torch.core.karatsuba import karatsuba_vmm  # noqa: E402
 from repro_torch.core.planner import LayerPlan, plan_model  # noqa: E402
 from repro_torch.core.strassen import strassen_matmul  # noqa: E402
+from repro_torch.checkpoint import active_slot  # noqa: E402
 from repro_torch.device import DeviceConfig, effective_cell_codes  # noqa: E402
 from repro_torch.device import programmed as tprog  # noqa: E402
+from repro_torch.device import repair as trepair  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import crossbar_vmm as kvmm  # noqa: E402
 from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda, crossbar_vmm_plain  # noqa: E402
@@ -116,9 +137,15 @@ INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 
 NOISY_DEVICE = DeviceConfig(sigma=0.02, p_stuck_on=1e-3, p_stuck_off=1e-3)
-# a planned noisy chip serves only without stuck cells: a plan's spare budget
-# on stuck cells needs spare-column repair, which is not ported
+# the planned_datapaths phase holds one planned noisy projection without
+# stuck cells (no repair) to the noisy kernel's unplanned one;
+# serve_planned_repaired serves the planned chip on NOISY_DEVICE, repaired
 STUCK_FREE_DEVICE = DeviceConfig(sigma=0.02)
+# repair_recovery: a stuck-cell rate (1e-2 in all) where repair has much to do
+RECOVERY_DEVICE = DeviceConfig(sigma=0.02, p_stuck_on=5e-3, p_stuck_off=5e-3)
+# lifecycle: a drifting chip with stuck cells and 4 spares a column group
+LIFECYCLE_DEVICE = DeviceConfig(sigma=0.02, p_stuck_on=1e-3, p_stuck_off=1e-3, drift_nu=0.05, spare_cols=4)
+LIFECYCLE_AGE_S = 1e7
 PLANNED = ("karatsuba1", "karatsuba2", "strassen")
 MAIN_SHAPES = [(960, 960), (960, 320), (960, 5120), (2560, 960), (960, 49152)]
 XLSTM_HEAD = (1024, 50304)  # the tied head of xlstm-350m, K x N
@@ -985,20 +1012,28 @@ def cut_depth(cfg, params, chip, layers):
     """A copy of a one-stage model and its programmed chip cut to its first
     ``layers`` layers: the stacked leaves and artifacts are sliced (views,
     no copies)."""
+    cut_cfg, cut_p = cut_params(cfg, params, layers)
+    repeats = cut_cfg.stages[0].repeats
+
+    def cut(tree):
+        return {k: cut(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.map_arrays(
+            lambda t: t[:repeats]
+        )
+
+    cut_arts = {k: (cut(v) if k == "stage0" else v) for k, v in chip.artifacts.items()}
+    return cut_cfg, cut_p, tprog.ProgrammedModel(cut_arts)
+
+
+def cut_params(cfg, params, layers):
+    """A one-stage model's config and params cut to its first ``layers``
+    layers at full width (the stacked leaves sliced: views, no copies)."""
     cut_cfg = depth_config(cfg, layers)
     repeats = cut_cfg.stages[0].repeats
 
-    def cut(tree, fn):
-        if isinstance(tree, dict):
-            return {k: cut(v, fn) for k, v in tree.items()}
-        return fn(tree)
+    def cut(tree):
+        return {k: cut(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:repeats]
 
-    cut_params = {k: (cut(v, lambda t: t[:repeats]) if k == "stage0" else v) for k, v in params.items()}
-    cut_arts = {
-        k: (cut(v, lambda a: a.map_arrays(lambda t: t[:repeats])) if k == "stage0" else v)
-        for k, v in chip.artifacts.items()
-    }
-    return cut_cfg, cut_params, tprog.ProgrammedModel(cut_arts)
+    return cut_cfg, {k: (cut(v) if k == "stage0" else v) for k, v in params.items()}
 
 
 def serve_dense(phase, arch, dev, seed, quick):
@@ -1141,21 +1176,16 @@ def replayed_tick_checks(path, eng, cfg, seed, per_tick, planned_per_tick=None):
     return graph_vs_eager(path, eng, make_requests(cfg, seed + 6))
 
 
-def graph_vs_eager(path, eng, prompts, ticks=12):
-    """The replayed tick against the eager one on the same pool: a full pool
-    after admission, then ``ticks`` ticks, each run twice in alternating
-    order — by graph replay on the live cache, and eagerly
+def replay_vs_eager_ticks(eng, ticks):
+    """``ticks`` ticks of the pool as it stands, each run twice in
+    alternating order — by graph replay on the live cache, and eagerly
     (``decode_step`` under the runner's crossbar mode, inputs copied from the
     host as the eager runner did) on a clone of it — with the greedy tokens of
-    the replay fed to both.  Logits bit-equal at every tick and the two
-    caches after the last; each tick timed on the host clock to the end of
-    its device-to-host copy of the logits; then the device span of one
-    replay alone."""
+    the replay fed to both.  Returns the ticks whose logits differ, whether
+    the two caches agree after the last, the largest logit difference and
+    each tick's seconds on the host clock (to the end of its device-to-host
+    copy of the logits), replayed and eager."""
     runner, dev = eng.runner, eng.runner.device
-    for p in prompts[: eng.max_batch]:
-        eng.submit(p, max_new_tokens=ticks + 8)
-    eng.step()  # admits the pool full
-    require(all(s is not None for s in eng.slots), f"graph_vs_eager_{path}: the pool is not full")
     last, pos = eng.last_tok.astype(np.int64), eng.pos.astype(np.int64)
     eager_cache = clone_cache(eng.cache)
     replay_s, eager_s, unequal, max_diff = [], [], [], 0.0
@@ -1184,6 +1214,20 @@ def graph_vs_eager(path, eng, prompts, ticks=12):
         last = out["replay"].argmax(dim=-1).numpy().astype(np.int64)
         pos = pos + 1
     caches_equal = all(torch.equal(a, b) for a, b in zip(cache_leaves(eng.cache), cache_leaves(eager_cache)))
+    return unequal, caches_equal, max_diff, replay_s, eager_s
+
+
+def graph_vs_eager(path, eng, prompts, ticks=12):
+    """The replayed tick against the eager one on the same pool: a full pool
+    after admission, then ``ticks`` ticks by ``replay_vs_eager_ticks``:
+    logits bit-equal at every tick and the two caches after the last; then
+    the device span of one replay alone."""
+    runner = eng.runner
+    for p in prompts[: eng.max_batch]:
+        eng.submit(p, max_new_tokens=ticks + 8)
+    eng.step()  # admits the pool full
+    require(all(s is not None for s in eng.slots), f"graph_vs_eager_{path}: the pool is not full")
+    unequal, caches_equal, max_diff, replay_s, eager_s = replay_vs_eager_ticks(eng, ticks)
     # the device span of one replay (kernels and the gaps between them),
     # CUDA events around the graph alone; it rewrites the pool, which is
     # not used after this check
@@ -1270,6 +1314,321 @@ def cpu_vs_card_projections(dev):
                 n_proj += 1
         out[name] = dict(projections_bit_equal=n_proj)
     return out
+
+
+# ---------------------------------------------------------------------------
+# repair and the chip lifecycle
+# ---------------------------------------------------------------------------
+
+def repair_summary(reports):
+    """Totals over ``repair_reports()``: artifacts (slabs) repaired, logical
+    columns with a repaired unit, unit slots used of the budget, and the
+    planner-model salience before and after."""
+    flat = [r for v in reports.values() for r in (v if isinstance(v, tuple) else (v,)) if r is not None]
+    return dict(
+        slabs=len(flat), slabs_repaired=sum(r.n_repaired > 0 for r in flat),
+        columns_repaired=sum(len(r.repaired_cols) for r in flat),
+        units_repaired=sum(r.n_repaired for r in flat), unit_budget=sum(r.budget for r in flat),
+        salience_before=sum(r.salience_before for r in flat), salience_after=sum(r.salience_after for r in flat),
+    )
+
+
+class timed_repair_planning:
+    """Within the block, every ``repair.plan_repair`` call is timed (device
+    synchronised on both sides): ``seconds`` and ``calls`` afterwards."""
+
+    def __enter__(self):
+        self.seconds, self.calls, self._real = 0.0, 0, trepair.plan_repair
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._real(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        trepair.plan_repair = timed
+        return self
+
+    def __exit__(self, *exc):
+        trepair.plan_repair = self._real
+
+
+def serve_planned_repaired(cfg, params, dev, seed, quick):
+    """The planned ("Newton") chip on a device with stuck cells: the plan
+    provisions spare columns for NOISY_DEVICE's stuck-cell rate, the repair
+    planner programs them, and the chip serves every projection on the noisy
+    kernel (a noisy chip keeps the device kernel under a plan; the plan picks
+    its ADC schedule).  Returns the serving run's launch counts."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = plan_model(params, device=NOISY_DEVICE, tie_lm_head=True)
+    plan_s = time.perf_counter() - t0
+    spares = sorted({p.spare_cols for p in plan.layers.values()})
+    require(spares[-1] > 0, f"serve_planned_repaired: the plan provisions no spare columns ({spares})")
+    noisy = CrossbarMode(enabled=True, strict=True, device=NOISY_DEVICE)
+    with timed_repair_planning() as rp:
+        line, launches, eng = serve_phase(
+            "serve_planned_repaired", cfg, params, noisy, "noisy", dev, seed + 1, False, plan=plan,
+        )
+    n_slabs = sum(a.shape[0] if a.stacked else 1 for a in eng.programmed.by_name.values())
+    require(rp.calls == n_slabs, f"serve_planned_repaired: {rp.calls} repair plans for {n_slabs} slabs")
+    require(
+        all(a.g_spare is not None and a.out_gather is not None for a in eng.programmed.by_name.values()),
+        "serve_planned_repaired: an artifact has no spare block",
+    )
+    if not quick:  # 6 prefills + 32 decode ticks, 193 projections each
+        require(
+            line["projections"] == 193 and line["prefills"] + line["decode_ticks"] == 38
+            and launches["noisy"] == 7334,
+            f"serve_planned_repaired: {launches['noisy']} noisy-kernel launches of {line['projections']} "
+            f"projections in {line['prefills']} + {line['decode_ticks']} forwards, expected 193 x 38 = 7334",
+        )
+    line.update(
+        plan_seconds=plan_s, plan_spare_cols=spares, repair_planning_seconds=rp.seconds,
+        repair_plans=rp.calls, repair=repair_summary(eng.repair_reports()),
+        g_spare_gb=sum(a.g_spare.numel() * 4 for a in eng.programmed.by_name.values()) / 1e9,
+    )
+    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)[0]
+    emit(line)
+    replayed_tick_checks("planned_repaired", eng, cfg, seed, {"noisy_mma_kernel": line["projections"]})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def program_logits(cfg, params, prog, tok):
+    """Logits of one prompt through a programmed chip."""
+    with crossbar_mode(CrossbarMode(enabled=True, strict=True, programmed=prog)), prog.bind():
+        return model_lib.forward(params, cfg, tok).float()
+
+
+def repaired_layer_card_vs_cpu(dcfg, dev, seed, K=960, N=5120):
+    """One repaired K x N slab programmed on the CPU and on the card from the
+    same random fields (drawn on the CPU, copied to the card): the repair
+    plan (victims, routing tables), the spare block and the repaired cells
+    ``torch.equal`` — the greedy's argmax ties and its batched steps pinned
+    on the card."""
+    spec = layer_scaled_spec(DEFAULT_SPEC, K)
+    S, B = spec.n_slices, trepair.spare_budget(N, spec, dcfg)
+    gen = torch.Generator().manual_seed(seed)
+    wb = torch.randint(0, 1 << spec.weight_bits, (K, N), generator=gen)
+    fields = dict(
+        u=torch.rand((S, K, N), generator=gen),
+        z_pulses=[torch.randn((S, K, N), generator=gen) for _ in range(max(1, dcfg.write_verify_iters))],
+        u_spare=torch.rand((S, K, B), generator=gen),
+        z_spare_pulses=[torch.randn((S, K, B), generator=gen) for _ in range(max(1, dcfg.write_verify_iters))],
+    )
+    t0 = time.perf_counter()
+    g_c, p_c, _ = trepair.repaired_effective_cells(wb, spec, dcfg, **fields)
+    cpu_s = time.perf_counter() - t0
+    on_card = {k: ([t.to(dev) for t in v] if isinstance(v, list) else v.to(dev)) for k, v in fields.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_d, p_d, _ = trepair.repaired_effective_cells(wb.to(dev), spec, dcfg, **on_card)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    equal = {
+        "victim": torch.equal(p_c.victim, p_d.victim.cpu()),
+        "out_gather": torch.equal(p_c.out_gather, p_d.out_gather.cpu()),
+        "g_spare": torch.equal(p_c.g_spare, p_d.g_spare.cpu()),
+        "g_eff": torch.equal(g_c, g_d.cpu()),
+    }
+    out = dict(
+        K=K, N=N, spare_cols=dcfg.spare_cols, budget=B, units_repaired=int((p_c.victim >= 0).sum()),
+        equal=equal, cells_differing=int((g_c != g_d.cpu()).sum()), cpu_seconds=cpu_s, card_seconds=card_s,
+    )
+    require(all(equal.values()), f"repair_recovery: the repaired layer differs between card and CPU: {out}")
+    return out
+
+
+def repair_recovery(cfg, params, dev, seed):
+    """A 2-layer full-width copy of smollm on RECOVERY_DEVICE, three chips
+    under one plan (the same ADC schedule): no stuck cells, stuck cells
+    without spares, stuck cells with the plan's spares.  Each one's logits
+    against the plain-matmul model on one prompt; ``recovered_frac`` =
+    (MSE_norepair - MSE_repair) / (MSE_norepair - MSE_stuck_free) must be
+    positive.  Then one repaired 960 x 5120 slab on the card and on the CPU.
+    Returns the launch counts of the three chips' forwards."""
+    torch.cuda.reset_peak_memory_stats()
+    cut_cfg, cparams = cut_params(cfg, params, 2) if cfg.n_layers > 2 else (cfg, params)
+    plan = plan_model(cparams, device=RECOVERY_DEVICE, tie_lm_head=True)
+    no_spares = dataclasses.replace(
+        plan, layers={n: dataclasses.replace(p, spare_cols=0) for n, p in plan.layers.items()}
+    )
+    stuck_free = RECOVERY_DEVICE.replace(p_stuck_on=0.0, p_stuck_off=0.0)
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(1, 16))).to(dev)
+    digital = model_lib.forward(cparams, cut_cfg, tok).float()
+    mse, seconds = {}, {}
+    kvmm.reset_counters()
+    for name, dcfg, chip_plan in (
+        ("stuck_free", stuck_free, no_spares), ("no_repair", RECOVERY_DEVICE, no_spares),
+        ("repair", RECOVERY_DEVICE, plan),
+    ):
+        t0 = time.perf_counter()
+        prog = tprog.program_model(cparams, device_cfg=dcfg, tie_lm_head=True, plan=chip_plan, device=dev)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        logits = program_logits(cut_cfg, cparams, prog, tok)
+        require(bool(torch.isfinite(logits).all()), f"repair_recovery: {name} logits are not finite")
+        mse[name] = float(torch.mean((logits - digital) ** 2))
+        if name == "repair":
+            summary = repair_summary(prog.repair_reports())
+        del prog, logits
+        torch.cuda.empty_cache()
+    launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES, **tprog.PLANNED_CALLS)
+    frac = (mse["no_repair"] - mse["repair"]) / (mse["no_repair"] - mse["stuck_free"])
+    wi_spares = plan.layers["stage0/b0/ffn/wi"].spare_cols
+    line = dict(
+        phase="repair_recovery", arch=cfg.name, n_layers=cut_cfg.n_layers, d_model=cfg.d_model,
+        device=dataclasses.asdict(RECOVERY_DEVICE), plan_spare_cols=sorted({p.spare_cols for p in plan.layers.values()}),
+        logits_mse_vs_plain_matmul=mse, recovered_frac=frac, program_seconds=seconds, repair=summary,
+        launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        card_vs_cpu_layer=repaired_layer_card_vs_cpu(RECOVERY_DEVICE.replace(spare_cols=wi_spares), dev, seed),
+    )
+    emit(line)
+    require(frac > 0.0, f"repair_recovery: repair recovered nothing ({mse})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drain(eng):
+    """Step until every submitted request is done; returns their tokens."""
+    while eng.pending or any(s is not None for s in eng.slots):
+        eng.step()
+    return [r.generated for r in eng.run_until_done(max_ticks=0)]
+
+
+def lifecycle(cfg, params, dev, seed):
+    """smollm-360m at full width and depth on LIFECYCLE_DEVICE (drifting,
+    stuck cells, 4 spares a group), a pool of the serve phases' 6 requests
+    two ticks into its run, then: age the chip LIFECYCLE_AGE_S seconds,
+    compensate it, refresh it in memory — after each, the captured tick must
+    be gone, and 3 ticks replayed by the newly captured graph bit-equal to
+    eager ``decode_step`` on a clone (the pool is put back afterwards); the
+    health monitor's worst layer rises with age and falls with compensation,
+    which recovers at least half of the probe MSE aging added; the refreshed
+    chip is the fresh program, and the run, finished after the refresh,
+    serves the tokens of an uninterrupted run on a fresh chip.  Last, on a
+    2-layer full-width copy, ``refresh(directory)`` twice: slots A then B,
+    each serving a fresh engine's tokens.  Returns the phase's launch
+    counts."""
+    torch.cuda.reset_peak_memory_stats()
+    mode = CrossbarMode(enabled=True, strict=True, device=LIFECYCLE_DEVICE)
+    prompts = make_requests(cfg, seed)
+    kvmm.reset_counters()
+    kscan.reset_counters()
+    t0 = time.perf_counter()
+    ref = ServingEngine(cfg, params, max_batch=4, max_seq=256, crossbar=mode, device=dev)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    ref_tokens = [r.generated for r in drive(ref, prompts, max_new=16)[0]]
+    fresh_chip = ref.programmed
+    del ref
+    eng = ServingEngine(cfg, params, max_batch=4, max_seq=256, crossbar=mode, device=dev)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=16)
+    eng.step()
+    eng.step()
+    graphs = [eng.runner.decode_graph]
+    require(graphs[0] is not None and graphs[0].graph is not None, "lifecycle: the first ticks were not captured")
+    steps = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    health = {"fresh": timed(eng.health_check)}
+
+    def rebind(name, action):
+        seconds = timed(action)[1]
+        require(eng.runner.decode_graph is None, f"lifecycle: {name} kept the captured tick")
+        saved = clone_cache(eng.cache)
+        unequal, caches_equal, max_diff, replay_s, eager_s = replay_vs_eager_ticks(eng, 3)
+        for a, b in zip(cache_leaves(eng.cache), cache_leaves(saved)):
+            a.copy_(b)  # the pool as it was: the run goes on from here
+        graph = eng.runner.decode_graph
+        require(
+            graph is not None and graph.graph is not None and all(graph is not g for g in graphs),
+            f"lifecycle: no new capture after {name}",
+        )
+        graphs.append(graph)
+        steps[name] = dict(
+            seconds=seconds, capture_seconds=graph.capture_seconds, logits_equal=not unequal,
+            caches_equal=caches_equal, max_abs_logit_diff=max_diff,
+            decode_tick_ms=[1e3 * x for x in replay_s], eager_decode_tick_ms=[1e3 * x for x in eager_s],
+        )
+        require(not unequal and caches_equal, f"lifecycle: after {name}, replay != eager (max {max_diff})")
+
+    rebind("age", lambda: eng.age(LIFECYCLE_AGE_S))
+    health["aged"] = timed(eng.health_check)
+    rebind("compensate", eng.compensate)
+    health["compensated"] = timed(eng.health_check)
+    worst = {k: h.worst for k, (h, _) in health.items()}
+    mse = {k: sum(x.mse for x in h.layers) / len(h.layers) for k, (h, _) in health.items()}
+    recovered = (mse["aged"] - mse["compensated"]) / (mse["aged"] - mse["fresh"])
+    rebind("refresh", eng.refresh)
+    refreshed_equal = sorted(eng.programmed.by_name) == sorted(fresh_chip.by_name) and all(
+        tprog.artifacts_equal(a, fresh_chip.by_name[n]) for n, a in eng.programmed.by_name.items()
+    )
+    del fresh_chip
+    tokens = drain(eng)
+    require(len(tokens) == len(prompts) and all(len(t) == 16 for t in tokens), "lifecycle: the run did not finish")
+    uptime_after_refresh = eng.uptime_s
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the store's two slots, on a 2-layer full-width copy
+    cut_cfg, cparams = cut_params(cfg, params, 2) if cfg.n_layers > 2 else (cfg, params)
+    small = ServingEngine(cut_cfg, cparams, max_batch=4, max_seq=256, crossbar=mode, device=dev)
+    for p in prompts:
+        small.submit(p, max_new_tokens=16)
+    want = drain(small)
+    slots = []
+    with tempfile.TemporaryDirectory() as d:
+        for _ in range(2):
+            slot, seconds = timed(lambda: small.refresh(d))
+            for p in prompts:
+                small.submit(p, max_new_tokens=16)
+            got = drain(small)[-len(prompts):]
+            slots.append(dict(slot=slot, active=active_slot(d), seconds=seconds, tokens_equal_fresh=got == want))
+        store_ok = verify_store(d).ok
+    del small
+    launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES, **tprog.PLANNED_CALLS)
+    line = dict(
+        phase="lifecycle", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        device=dataclasses.asdict(LIFECYCLE_DEVICE), age_s=LIFECYCLE_AGE_S, program_seconds=program_s,
+        captures=len(graphs), steps=steps,
+        health={k: dict(worst=worst[k], mean_probe_mse=mse[k], flagged=len(h.flagged), layers=len(h.layers),
+                        seconds=s) for k, (h, s) in health.items()},
+        compensation_recovered_frac=recovered, refreshed_equals_fresh_program=refreshed_equal,
+        uptime_after_refresh=uptime_after_refresh, tokens_equal_uninterrupted=tokens == ref_tokens,
+        store_refreshes=slots, store_verified=store_ok, store_layers=cut_cfg.n_layers,
+        launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    emit(line)
+    require(worst["aged"] > worst["fresh"], f"lifecycle: aging did not raise the worst layer's error {worst}")
+    require(worst["compensated"] < worst["aged"], f"lifecycle: compensation did not help {worst}")
+    require(recovered >= 0.5, f"lifecycle: compensation recovered {recovered} of the aged probe MSE")
+    require(refreshed_equal, "lifecycle: the refreshed chip is not the fresh program")
+    require(line["tokens_equal_uninterrupted"], "lifecycle: the refreshed run's tokens differ from a fresh run's")
+    require(len(graphs) == 4, f"lifecycle: {len(graphs)} captures, expected 4")
+    require(
+        [(x["slot"], x["active"]) for x in slots] == [("A", "A"), ("B", "B")]
+        and all(x["tokens_equal_fresh"] for x in slots) and store_ok,
+        f"lifecycle: store refreshes {slots}",
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1405,6 +1764,12 @@ def main() -> int:
     del eng, ideal_logits, planned_logits
     torch.cuda.empty_cache()
 
+    # the planned chip with stuck cells, repaired; repair's recovery on a
+    # 2-layer copy; a drifting chip aged, compensated and refreshed
+    launches_repaired = serve_planned_repaired(cfg, params, dev, args.seed, args.quick)
+    launches_recovery = repair_recovery(cfg, params, dev, args.seed + 7)
+    launches_lifecycle = lifecycle(cfg, params, dev, args.seed + 1)
+
     # xlstm-350m at full width and depth; only the tied head is programmed
     xcfg = get_config("xlstm-350m")
     if args.quick:
@@ -1433,7 +1798,9 @@ def main() -> int:
 
     by_path = dict(
         serve_ideal=launches_ideal, serve_ideal_paper_datapath=launches_planes,
-        serve_noisy=launches_noisy, serve_planned=launches_planned, serve_xlstm=launches_xlstm,
+        serve_noisy=launches_noisy, serve_planned=launches_planned,
+        serve_planned_repaired=launches_repaired, repair_recovery=launches_recovery, lifecycle=launches_lifecycle,
+        serve_xlstm=launches_xlstm,
     )
     # gemma2-9b, minitron-4b and starcoder2-3b at full width from ideal chips
     for i, (phase, arch) in enumerate(DENSE_SERVES):

@@ -3,4 +3,5 @@ from repro_torch.checkpoint.checkpoint import (  # noqa: F401
     active_slot,
     restore_programmed,
     save_programmed,
+    swap_active,
 )

@@ -12,7 +12,7 @@ bit-for-bit in the other, plans included.
 
 Layout: ``<dir>/programmed/`` (unslotted), or the double-buffered
 ``<dir>/programmed.slotA`` / ``.slotB`` with the ``<dir>/programmed.ACTIVE``
-pointer naming the live slot.
+pointer naming the live slot (``swap_active`` commits a slot).
 """
 from __future__ import annotations
 
@@ -29,41 +29,49 @@ from repro_torch.core.adc import ADCConfig
 from repro_torch.core.crossbar import CrossbarSpec
 from repro_torch.core.planner import LayerPlan
 from repro_torch.device.models import DeviceConfig
+from repro_torch.device.program import ProgramReport
 from repro_torch.device.programmed import (
     ARTIFACT_ARRAY_FIELDS,
     ProgrammedLinear,
     ProgrammedModel,
 )
+from repro_torch.device.repair import RepairReport
 
 PROGRAMMED_SLOTS = ("A", "B")
 
-# the report kinds a manifest may carry, with their fields (the reference's
-# ProgramReport and RepairReport); the port keeps reports as their JSON
-_AUX_FIELDS = {
-    "ProgramReport": (
-        "iterations", "converged_frac", "mean_abs_error", "max_abs_error", "stuck_frac",
-        "per_iter_mean_error",
-    ),
-    "RepairReport": ("budget", "n_repaired", "repaired_cols", "salience_before", "salience_after"),
-}
+# the report kinds a manifest may carry, by the name it records
+_AUX_KINDS = {"ProgramReport": ProgramReport, "RepairReport": RepairReport}
+
+
+def _encode_aux(obj):
+    """JSON-encode a report / repair value: None, a report dataclass, or the
+    (nested) per-slab tuple of a stacked artifact, in the reference's form."""
+    if obj is None:
+        return None
+    if isinstance(obj, tuple):
+        return {"__kind__": "tuple", "items": [_encode_aux(o) for o in obj]}
+    if dc.is_dataclass(obj) and type(obj).__name__ in _AUX_KINDS:
+        return {"__kind__": type(obj).__name__, **dc.asdict(obj)}
+    raise TypeError(f"unserializable artifact aux: {type(obj)!r}")
 
 
 def _decode_aux(obj):
-    """Check an encoded report / repair value and return it as stored: None,
-    a ``tuple`` of values, or a report of a known kind with exactly its
-    fields.  Raises ``KeyError`` / ``TypeError`` / ``ValueError`` where the
-    reference's decode would."""
+    """Decode a report / repair value: None, a ``tuple`` of values, or a
+    ``ProgramReport`` / ``RepairReport``.  An unknown kind or a wrong field
+    set raises ``KeyError`` / ``TypeError`` / ``ValueError``, as the
+    reference's decode does."""
     if obj is None:
         return None
     kind = obj["__kind__"]
     if kind == "tuple":
         return tuple(_decode_aux(o) for o in obj["items"])
-    if kind not in _AUX_FIELDS:
+    if kind not in _AUX_KINDS:
         raise ValueError(f"unknown artifact aux kind: {kind!r}")
-    got = sorted(k for k in obj if k != "__kind__")
-    if got != sorted(_AUX_FIELDS[kind]):
-        raise TypeError(f"{kind} fields {got} != {sorted(_AUX_FIELDS[kind])}")
-    return obj
+    fields = {k: v for k, v in obj.items() if k != "__kind__"}
+    for k in ("per_iter_mean_error", "repaired_cols"):
+        if k in fields:
+            fields[k] = tuple(fields[k])
+    return _AUX_KINDS[kind](**fields)
 
 
 def _decode_plan(obj: dict) -> LayerPlan:
@@ -93,6 +101,26 @@ def active_slot(directory: str) -> Optional[str]:
         return None
     if slot not in PROGRAMMED_SLOTS:
         raise ValueError(f"corrupt ACTIVE pointer: {slot!r}")
+    return slot
+
+
+def swap_active(directory: str, slot: str) -> str:
+    """Point the store at ``slot`` (the hot-swap commit point): the pointer
+    is written to a temporary file and moved into place with
+    ``os.replace``, so a reader sees the old slot or the new one, never a
+    torn pointer.  A slot without a manifest is refused."""
+    if slot not in PROGRAMMED_SLOTS:
+        raise ValueError(f"slot must be one of {PROGRAMMED_SLOTS}, got {slot!r}")
+    if not os.path.isfile(os.path.join(_programmed_dir(directory, slot), "manifest.json")):
+        raise FileNotFoundError(
+            f"slot {slot} has no programmed store in {directory} — "
+            "save_programmed(..., slot=...) first"
+        )
+    ptr = _active_pointer(directory)
+    tmp = ptr + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(slot)
+    os.replace(tmp, ptr)
     return slot
 
 
@@ -128,8 +156,8 @@ def save_programmed(
             "spec": dc.asdict(art.spec),
             "adc_cfg": dc.asdict(art.adc_cfg) if art.adc_cfg is not None else None,
             "fast": bool(art.fast),
-            "report": art.report,
-            "repair": art.repair,
+            "report": _encode_aux(art.report),
+            "repair": _encode_aux(art.repair),
             "sharding": None,
             "device": (dc.asdict(art.device) if art.device is not None else None),
             "t_service_s": float(art.t_service_s),
@@ -191,10 +219,10 @@ def restore_programmed(directory: str, device="cuda", slot: Optional[str] = None
             spec=CrossbarSpec(**info["spec"]),
             adc_cfg=(ADCConfig(**info["adc_cfg"]) if info["adc_cfg"] is not None else None),
             fast=bool(info["fast"]),
-            report=info.get("report"),
+            report=_decode_aux(info.get("report")),
             g_spare=arrays.get("g_spare"),
             out_gather=arrays.get("out_gather"),
-            repair=info.get("repair"),
+            repair=_decode_aux(info.get("repair")),
             comp_scale=arrays.get("comp_scale"),
             device=(DeviceConfig(**info["device"]) if info.get("device") is not None else None),
             t_service_s=float(info.get("t_service_s", 0.0)),

@@ -19,8 +19,8 @@ serializable ``LayerPlan`` per layer and a ``ChipPlan`` for the model.
 Execution is wired through the programming pipeline: ``program_layer`` /
 ``program_model(plan=...)`` attach each layer's ``LayerPlan`` to the
 compiled ``ProgrammedLinear`` and materialize its choices (ADC config;
-a spare-column budget on a device with stuck cells needs repair, which is
-not ported, and raises);
+on a device with stuck cells the spare-column budget, which
+``device.repair`` programs);
 ``programmed_matmul`` then routes ideal-device artifacts through
 ``karatsuba_vmm`` / ``strassen_matmul``, which are bit-identical to the
 direct datapath by exact integer arithmetic — a planned chip must produce

@@ -1,11 +1,13 @@
 """Memristor device non-ideality models (counterpart of
-``repro.device.models``; repair, chip fleets and service-time aging are not
-part of this slice).
+``repro.device.models``).
 
 Composable, seeded models of everything between "the mapper assigns cell code
 ``c``" and "the column ADC samples a current": conductance level quantization
 over the rails ``[g_off_s, g_on_s]``, lognormal programming variation,
-power-law drift, stuck-at faults, first-order IR drop.
+power-law drift, stuck-at faults, first-order IR drop; the service-time
+drift clock (``drift_time_factor`` / ``age_effective_codes``); and the entry
+to spare-column repair (``effective_cell_codes(repair=True)`` routes through
+``device.repair``).
 
 Randomness: each stochastic stage takes its random field as an optional
 argument (``u`` uniform in [0, 1) for the fault map, ``z`` standard normal per
@@ -30,12 +32,18 @@ from repro_torch.core.crossbar import CrossbarSpec
 
 GEFF_FRAC_BITS = 8
 
+# one independent randomness stream per stage, each with its own index; the
+# repair planner's spare block draws its faults and pulses from the last two
 STAGE_FAULTS = "faults"
 STAGE_PROGRAM = "program"
+STAGE_SPARE_FAULTS = "spare_faults"
+STAGE_SPARE_PROGRAM = "spare_program"
 
 _STAGES = {
     STAGE_FAULTS: 0,
     STAGE_PROGRAM: 1,
+    STAGE_SPARE_FAULTS: 2,
+    STAGE_SPARE_PROGRAM: 3,
 }
 
 
@@ -43,11 +51,10 @@ _STAGES = {
 class DeviceConfig:
     """Programmed-conductance non-ideality knobs (all default to ideal).
 
-    Every field of the reference config is carried so artifact-store
-    manifests decode; this slice acts on the programming and read stages
-    (``spare_cols``, ``chip`` fleets and Arrhenius drift are data only until
-    repair and lifecycle are ported — a positive ``spare_cols`` with faults
-    raises in ``effective_cell_codes``).
+    ``spare_cols`` provisions redundant spare columns per 128-column group
+    for the repair planner (``device.repair``); ``temp_k`` / ``drift_ea_ev``
+    scale the drift exponent Arrhenius-style; ``chip`` is a physical chip
+    identity mixed into every seeded draw (``chip=0`` is the single die).
     """
 
     sigma: float = 0.0  # lognormal programming variation of ln(G)
@@ -121,8 +128,17 @@ def conductance_of_codes(codes: torch.Tensor, spec: CrossbarSpec, cfg: DeviceCon
     return cfg.g_off_s + codes.to(torch.float32) * code_step_siemens(spec, cfg)
 
 
+def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` by IEEE division on any device.  PyTorch's CUDA kernel
+    multiplies by the reciprocal of a divisor given as a Python number (or
+    any CPU scalar), which rounds differently now and then; a 0-d divisor on
+    ``x``'s own device is divided by truly, as on the CPU and in the
+    reference."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
 def codes_of_conductance(g: torch.Tensor, spec: CrossbarSpec, cfg: DeviceConfig) -> torch.Tensor:
-    return (g - cfg.g_off_s) / code_step_siemens(spec, cfg)
+    return _divide(g - cfg.g_off_s, code_step_siemens(spec, cfg))
 
 
 def quantize_code_grid(codes: torch.Tensor) -> torch.Tensor:
@@ -165,10 +181,16 @@ def apply_faults(
 
 def program_variation(g: torch.Tensor, cfg: DeviceConfig, z: torch.Tensor) -> torch.Tensor:
     """One write pulse: lands lognormally around the target (median-
-    preserving); ``z`` is the pulse's standard-normal field."""
+    preserving); ``z`` is the pulse's standard-normal field.
+
+    The exponential is taken in float64 and rounded to float32: that is the
+    correctly rounded float32 ``exp`` on the CPU and on the card alike, so a
+    slab programmed from the same fields is the same chip on either (a
+    float32 ``exp`` differs between them in the last bit, which moves a cell
+    across a grid step now and then)."""
     if cfg.sigma == 0.0:
         return g
-    return g * torch.exp(cfg.sigma * z)
+    return g * torch.exp((cfg.sigma * z).to(torch.float64)).to(torch.float32)
 
 
 BOLTZMANN_EV_K = 8.617333262e-5
@@ -191,6 +213,41 @@ def apply_drift(g: torch.Tensor, cfg: DeviceConfig) -> torch.Tensor:
     if nu == 0.0 or cfg.t_drift_s == 0.0:
         return g
     return g * ((1.0 + cfg.t_drift_s / cfg.t0_s) ** (-nu))
+
+
+def drift_time_factor(cfg: DeviceConfig, t_from_s: float, t_to_s: float) -> float:
+    """Conductance decay between two *service* times, anchored at
+    programming: ``((1 + (t_drift_s + t2)/t0) / (1 + (t_drift_s + t1)/t0))
+    ** -nu`` as a Python float, exactly 1.0 when nothing drifts (``nu == 0``
+    or ``t1 == t2``).  Time only runs forward."""
+    nu = effective_drift_nu(cfg)
+    if nu == 0.0 or t_to_s == t_from_s:
+        return 1.0
+    if t_to_s < t_from_s:
+        raise ValueError(
+            f"cannot run service time backwards: {t_to_s} < {t_from_s} "
+            "(the fresh chip is gone; reprogram to rejuvenate)"
+        )
+    base = cfg.t_drift_s
+    return float(
+        ((1.0 + (base + t_to_s) / cfg.t0_s) / (1.0 + (base + t_from_s) / cfg.t0_s))
+        ** (-nu)
+    )
+
+
+def age_effective_codes(
+    codes: torch.Tensor, spec: CrossbarSpec, cfg: DeviceConfig, factor: float
+) -> torch.Tensor:
+    """Drift-evolve stored effective cell codes by a conductance decay
+    ``factor``: back through the level map (``g = g_off + c * step``),
+    decay, re-read through clip + grid quantization.  The caller
+    short-circuits ``factor == 1.0``: the round trip is not a bit-exact
+    identity."""
+    step = code_step_siemens(spec, cfg)
+    g = cfg.g_off_s + codes.to(torch.float32) * step
+    aged = _divide(g * factor - cfg.g_off_s, step)
+    aged = torch.clamp(aged, 0.0, float((1 << spec.cell_bits) - 1))
+    return quantize_code_grid(aged)
 
 
 def ir_drop_conductance(
@@ -220,6 +277,33 @@ def target_cell_codes(w_codes_biased: torch.Tensor, spec: CrossbarSpec) -> torch
     return torch.stack([(w >> (s * spec.cell_bits)) & mask for s in range(spec.n_slices)])
 
 
+def program_attempt(
+    target_g: torch.Tensor,
+    masks: Tuple[torch.Tensor, torch.Tensor],
+    cfg: DeviceConfig,
+    i: int,
+    tag: int = 0,
+    stage: str = STAGE_PROGRAM,
+    z_pulses: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Write pulse ``i`` of a verify sequence: one noisy open-loop write with
+    stuck cells pinned.  Its normal field is ``z_pulses[i]`` when given, else
+    drawn from the (stage, tag, pulse) generator — the shared currency of
+    ``write_verify_fixed``, ``program.write_verify`` and the spare block of
+    ``device.repair``, which land the same conductances for the same pulse."""
+    z = None
+    if cfg.sigma != 0.0:
+        if z_pulses is not None:
+            z = z_pulses[i]
+        else:
+            z = torch.randn(
+                target_g.shape,
+                generator=stage_generator(cfg, stage, tag, pulse=i, device=target_g.device),
+                dtype=torch.float32, device=target_g.device,
+            )
+    return apply_faults(program_variation(target_g, cfg, z), masks, cfg)
+
+
 def write_verify_fixed(
     target: torch.Tensor,
     masks: Tuple[torch.Tensor, torch.Tensor],
@@ -227,39 +311,28 @@ def write_verify_fixed(
     cfg: DeviceConfig,
     tag: int = 0,
     *,
+    stage: str = STAGE_PROGRAM,
     z_pulses: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Fixed-iteration write-verify of target cell codes.
 
     With ``write_verify_iters <= 1`` an open-loop write (one noisy pulse);
     otherwise cells whose read-back code is more than ``write_verify_tol``
-    from target are re-pulsed.  Stuck cells ignore every pulse.  ``z_pulses``
-    supplies the per-pulse normal fields (else drawn per pulse index).
+    from target are re-pulsed.  Stuck cells ignore every pulse.  ``stage``
+    names the pulse stream (the spare block writes under its own);
+    ``z_pulses`` supplies the per-pulse normal fields.
     """
     target_g = conductance_of_codes(target, spec, cfg)
     iters = max(1, cfg.write_verify_iters)
 
-    def attempt(i: int) -> torch.Tensor:
-        if cfg.sigma == 0.0:
-            z = None
-        elif z_pulses is not None:
-            z = z_pulses[i]
-        else:
-            z = torch.randn(
-                target_g.shape,
-                generator=stage_generator(cfg, STAGE_PROGRAM, tag, pulse=i, device=target_g.device),
-                dtype=torch.float32, device=target_g.device,
-            )
-        return apply_faults(program_variation(target_g, cfg, z), masks, cfg)
-
     def verified(g: torch.Tensor) -> torch.Tensor:
         return torch.abs(codes_of_conductance(g, spec, cfg) - target) <= cfg.write_verify_tol
 
-    g = attempt(0)
+    g = program_attempt(target_g, masks, cfg, 0, tag, stage, z_pulses)
     if iters > 1:
         done = verified(g)
         for i in range(1, iters):
-            g = torch.where(done, g, attempt(i))
+            g = torch.where(done, g, program_attempt(target_g, masks, cfg, i, tag, stage, z_pulses))
             done = verified(g)
     return g
 
@@ -286,21 +359,46 @@ def effective_cell_codes(
     w_codes_biased: torch.Tensor,
     spec: CrossbarSpec,
     cfg: DeviceConfig,
-    repair: bool = False,
+    repair: bool = True,
     *,
     u: Optional[torch.Tensor] = None,
     z_pulses: Optional[Sequence[torch.Tensor]] = None,
+    u_spare: Optional[torch.Tensor] = None,
+    z_spare_pulses: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Full program+read pipeline: (K, N) biased codes -> (S, K, N) effective
     cell codes on the device of ``w_codes_biased``.  The ideal config returns
-    the exact integer slices.  ``u`` / ``z_pulses`` inject the random fields.
-    Spare-column repair is not ported: asking for it raises."""
-    if repair and wants_repair(cfg):
-        raise NotImplementedError("spare-column repair is not ported yet")
-    target = target_cell_codes(w_codes_biased, spec)
+    the exact integer slices.  With a spare budget and stuck cells the
+    layout is the *repaired* one (``device.repair``); ``repair=False``
+    returns the primary columns only.  ``u`` / ``z_pulses`` (and the spare
+    block's ``u_spare`` / ``z_spare_pulses``) inject the random fields."""
     if cfg.is_ideal:
-        return target.to(torch.float32)
+        return target_cell_codes(w_codes_biased, spec).to(torch.float32)
+    g_eff, target, tag, masks = programmed_effective(w_codes_biased, spec, cfg, u=u, z_pulses=z_pulses)
+    if repair and wants_repair(cfg):
+        from repro_torch.device import repair as repair_mod  # repair imports this module
+
+        rplan = repair_mod.plan_repair(
+            w_codes_biased, spec, cfg, target=target, tag=tag, primary_masks=masks,
+            u_spare=u_spare, z_spare_pulses=z_spare_pulses,
+        )
+        g_eff = repair_mod.apply_repair(g_eff, rplan)
+    return g_eff
+
+
+def programmed_effective(
+    w_codes_biased: torch.Tensor,
+    spec: CrossbarSpec,
+    cfg: DeviceConfig,
+    *,
+    u: Optional[torch.Tensor] = None,
+    z_pulses: Optional[Sequence[torch.Tensor]] = None,
+):
+    """The programming pipeline with its intermediates exposed: (g_eff,
+    target, tag, masks), so the repair planner reuses the slab's target
+    slices, tag and primary fault draw instead of deriving them again."""
+    target = target_cell_codes(w_codes_biased, spec)
     tag = slab_tag(w_codes_biased)
     masks = fault_masks(cfg, tuple(target.shape), tag, u=u, device=target.device)
     g = write_verify_fixed(target, masks, spec, cfg, tag, z_pulses=z_pulses)
-    return read_effective_codes(g, spec, cfg)
+    return read_effective_codes(g, spec, cfg), target, tag, masks

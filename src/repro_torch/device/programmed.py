@@ -1,10 +1,13 @@
 """Program-once crossbar compilation: frozen programmed-weight artifacts
-(counterpart of ``repro.device.programmed``; sharding, repair and aging are
-not part of this slice).
+(counterpart of ``repro.device.programmed``; sharding is not part of this
+slice).
 
 * ``program_layer(w, spec, device_cfg, adc_cfg) -> ProgrammedLinear`` — the
   programming-time entry point: quantized cell codes, device-perturbed
-  effective cells (``g_eff``), frozen scales, correction column sums.
+  effective cells (``g_eff``, repaired where the device provisions spares),
+  frozen scales, correction column sums.
+* ``artifact_at_time`` / ``age_artifact`` — the service clock: a drifted
+  view of the same chip, no reprogramming.
 * ``programmed_matmul`` / ``programmed_linear`` — the steady-state forward:
   quantize input -> crossbar VMM kernel -> dequantize -> offset correction.
   An artifact compiled under a ``core.planner.LayerPlan`` whose datapath is
@@ -47,6 +50,7 @@ from repro_torch.core.karatsuba import karatsuba_vmm
 from repro_torch.core.planner import ChipPlan, LayerPlan, adc_config_for
 from repro_torch.core.strassen import strassen_matmul
 from repro_torch.device import models as dm
+from repro_torch.device import repair as repair_mod
 from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda
 from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda
 
@@ -81,17 +85,19 @@ class ProgrammedLinear:
       * ``w_scale``: 0-d float32 frozen weight quantization scale.
       * ``x_scale``: 0-d float32 or None (None: dynamic per-call ``max(x)``).
       * ``g_spare`` / ``out_gather``: spare-column block and routing tables
-        of a repaired chip, ``comp_scale``: (N,) drift-compensation output
-        scales.  ``comp_scale`` is applied when present; the others are the
-        hardware record and ride along so stores round-trip.
+        of a repaired chip (``g_eff`` already holds the repaired layout;
+        these are the hardware record), ``comp_scale``: (N,) digital
+        drift-compensation output scales (``device.health``), applied when
+        present.
 
     A *stacked* artifact carries leading layer axes on every array;
     ``layer(i)`` peels one.  Static data: ``spec`` (layer-scaled),
     ``adc_cfg`` / ``fast`` (which kernel serves it), ``device`` (the
     ``DeviceConfig`` it was programmed with), ``t_service_s``, ``plan``
     (the ``core.planner.LayerPlan`` it was compiled under, or None: its
-    datapath picks the route) and ``report`` / ``repair`` carried as the
-    store's plain JSON values.
+    datapath picks the route), ``report`` (a ``program.ProgramReport``) and
+    ``repair`` (a ``repair.RepairReport``), per-slab tuples on a stacked
+    artifact.  ``age`` / ``at_time`` give the drift-evolved chip.
     """
 
     w_codes: torch.Tensor
@@ -139,6 +145,14 @@ class ProgrammedLinear:
         assert self.stacked, "layer() only applies to stacked artifacts"
         return self.map_arrays(lambda a: a[i])
 
+    def age(self, dt_s: float) -> "ProgrammedLinear":
+        """Advance the chip ``dt_s`` seconds of service (drift-evolved view)."""
+        return age_artifact(self, dt_s)
+
+    def at_time(self, t_s: float) -> "ProgrammedLinear":
+        """The chip at absolute service time ``t_s >= t_service_s``."""
+        return artifact_at_time(self, t_s)
+
 
 def artifacts_equal(a: ProgrammedLinear, b: ProgrammedLinear) -> bool:
     """Bit-exact artifact equality: every array field (None-ness included),
@@ -180,45 +194,51 @@ def program_layer(
 
     Runs every weight-only stage exactly once: the ``max |w|`` scale
     reduction, weight quantization, the device fault draw + write-verify +
-    read path, and the correction column sums; deterministic in
-    (w, spec, device_cfg).  Stacked leaves are compiled slab by slab into
-    the stacked arrays, so the programming temporaries of one slab are freed
-    before the next and no whole-stack copy is made.
+    read path, spare-column repair where the device provisions spares and
+    has stuck cells (``device.repair``: ``g_eff`` holds the repaired layout,
+    ``g_spare`` / ``out_gather`` / ``repair`` the hardware record), and the
+    correction column sums; deterministic in (w, spec, device_cfg).  Stacked
+    leaves are compiled slab by slab into the stacked arrays, so the
+    programming temporaries of one slab are freed before the next and no
+    whole-stack copy is made; their reports and repairs become per-slab
+    tuples.
+
+    ``with_report=True`` programs through ``program.write_verify`` (the same
+    cells) and keeps its ``ProgramReport``.  ``chips`` gives one
+    ``DeviceConfig.chip`` identity per slab of the innermost stacking axis
+    (the layer axis of a 3-D leaf; a 4-D leaf passes it to its expert axis):
+    the same weights on two chips draw different perturbations.  The stacked
+    artifact keeps the base ``device_cfg``.
 
     ``plan`` (a ``core.planner.LayerPlan``) compiles the layer under the
     plan compiler's choices: the ADC config is the plan's mode against the
-    layer-scaled spec, and the plan rides the artifact so
-    ``programmed_matmul`` runs its datapath.  Its spare budget is a no-op
-    unless the device has stuck cells to repair; there it raises, as does a
-    device's own ``spare_cols``: repair is not ported.  ``with_report`` and
-    ``chips`` belong to parts of the system that are not ported yet and
-    raise.
+    layer-scaled spec, a positive planned spare budget overrides the
+    device's where the device has stuck cells to repair (elsewhere it is a
+    no-op), and the plan rides the artifact so ``programmed_matmul`` runs
+    its datapath.
     """
-    if with_report or chips is not None:
-        raise NotImplementedError("program_layer(with_report= / chips=) is not ported yet")
-    if device_cfg is not None and dm.wants_repair(device_cfg):
-        raise NotImplementedError("spare-column repair (spare_cols > 0) is not ported yet")
-    if (
-        plan is not None
-        and plan.spare_cols > 0
-        and device_cfg is not None
-        and not device_cfg.is_ideal
-        and (device_cfg.p_stuck_on > 0 or device_cfg.p_stuck_off > 0)
-    ):
-        raise NotImplementedError(
-            f"spare-column repair (plan {plan.name!r} provisions spare_cols={plan.spare_cols} "
-            "on a device with stuck cells) is not ported yet"
-        )
     if w.ndim >= 3:
+        if chips is not None and w.ndim == 3:
+            if device_cfg is None:
+                raise ValueError("chips= requires a DeviceConfig")
+            if len(chips) != w.shape[0]:
+                raise ValueError(f"chips has {len(chips)} entries for stacking axis of {w.shape[0]}")
+            devices = [dataclasses.replace(device_cfg, chip=int(c)) for c in chips]
+        else:  # 4-D: chips go to the inner (expert) axis
+            devices = [device_cfg] * w.shape[0]
         # one slab at a time, each written into its place in the stacked
         # arrays: the float32 copy and the temporaries are one slab's, never
         # the whole stack's (gemma2-9b's ``wi`` stack is 2.2 B weights)
         stacked: Dict[str, torch.Tensor] = {}
         first = None
+        reports, repairs = [], []
         for i in range(w.shape[0]):
             part = program_layer(
-                w[i], spec, device_cfg, adc_cfg, x_scale=x_scale, w_scale=w_scale, fast=fast, plan=plan
+                w[i], spec, devices[i], adc_cfg, x_scale=x_scale, w_scale=w_scale, fast=fast,
+                with_report=with_report, chips=(chips if w.ndim > 3 else None), plan=plan,
             )
+            reports.append(part.report)
+            repairs.append(part.repair)
             for f in ARTIFACT_ARRAY_FIELDS:
                 a = getattr(part, f)
                 if a is None:
@@ -228,11 +248,22 @@ def program_layer(
                 stacked[f][i] = a
             if first is None:
                 first = part
-        return dataclasses.replace(first, **stacked)
+        return dataclasses.replace(
+            first, **stacked, device=device_cfg,
+            report=(tuple(reports) if any(r is not None for r in reports) else None),
+            repair=(tuple(repairs) if any(r is not None for r in repairs) else None),
+        )
     w = w.to(torch.float32)
     spec = layer_scaled_spec(spec, w.shape[0])
     if plan is not None:
         adc_cfg = adc_config_for(plan.adc_mode, spec)
+        if (
+            plan.spare_cols > 0
+            and device_cfg is not None
+            and not device_cfg.is_ideal
+            and (device_cfg.p_stuck_on > 0 or device_cfg.p_stuck_off > 0)
+        ):
+            device_cfg = dataclasses.replace(device_cfg, spare_cols=plan.spare_cols)
     if w_scale is None:
         w_scale_t = torch.clamp(torch.max(torch.abs(w)), min=1e-9) / (
             (1 << (spec.weight_bits - 1)) - 1
@@ -240,17 +271,64 @@ def program_layer(
     else:
         w_scale_t = torch.tensor(w_scale, dtype=torch.float32, device=w.device)
     wq = quantize_weight(w, spec, w_scale_t)
-    g_eff = None
+    g_eff = g_spare = out_gather = report = repair_rep = None
     if device_cfg is not None and not device_cfg.is_ideal:
-        g_eff = dm.effective_cell_codes(wq + spec.weight_bias, spec, device_cfg)
+        g_eff, rplan, report = repair_mod.repaired_effective_cells(
+            wq + spec.weight_bias, spec, device_cfg, with_report=with_report
+        )
+        if rplan is not None:
+            g_spare, out_gather = rplan.g_spare, rplan.out_gather
+            repair_rep = repair_mod.repair_report(rplan)
     return ProgrammedLinear(
         w_codes=wq, g_eff=g_eff, w_colsum=torch.sum(w, dim=0), w_scale=w_scale_t,
         x_scale=(
             torch.tensor(x_scale, dtype=torch.float32, device=w.device)
             if x_scale is not None else None
         ),
-        spec=spec, adc_cfg=adc_cfg, fast=fast, device=device_cfg, t_service_s=0.0, plan=plan,
+        g_spare=g_spare, out_gather=out_gather,
+        spec=spec, adc_cfg=adc_cfg, fast=fast, report=report, repair=repair_rep,
+        device=device_cfg, t_service_s=0.0, plan=plan,
     )
+
+
+# ---------------------------------------------------------------------------
+# Service-time aging (the chip lifecycle's clock)
+# ---------------------------------------------------------------------------
+
+def artifact_at_time(art: ProgrammedLinear, t_s: float) -> ProgrammedLinear:
+    """The chip as it reads at absolute service time ``t_s >=
+    art.t_service_s``: ``g_eff`` and ``g_spare`` decayed by the device's
+    power law between the two times (``models.drift_time_factor``, pushed
+    through the level map by ``models.age_effective_codes``, elementwise, so
+    stacked artifacts age whole).  The digital record (``w_codes``,
+    ``w_colsum``, scales) never ages.  A drift-free chip only advances the
+    clock: its arrays are the same tensors (a factor of exactly 1.0 is not
+    pushed through the round trip, which is no bit-exact identity)."""
+    t_s = float(t_s)
+    if t_s < art.t_service_s:
+        raise ValueError(
+            f"cannot rejuvenate a chip: at_time({t_s}) < current service "
+            f"time {art.t_service_s} (reprogram instead)"
+        )
+    if art.g_eff is None or art.device is None:
+        return dataclasses.replace(art, t_service_s=t_s)
+    factor = dm.drift_time_factor(art.device, art.t_service_s, t_s)
+    if factor == 1.0:
+        return dataclasses.replace(art, t_service_s=t_s)
+    g_eff = dm.age_effective_codes(art.g_eff, art.spec, art.device, factor)
+    g_spare = (
+        dm.age_effective_codes(art.g_spare, art.spec, art.device, factor)
+        if art.g_spare is not None
+        else None
+    )
+    return dataclasses.replace(art, g_eff=g_eff, g_spare=g_spare, t_service_s=t_s)
+
+
+def age_artifact(art: ProgrammedLinear, dt_s: float) -> ProgrammedLinear:
+    """Advance a chip ``dt_s >= 0`` seconds of service (``artifact_at_time``)."""
+    if dt_s < 0:
+        raise ValueError(f"dt_s must be non-negative, got {dt_s}")
+    return artifact_at_time(art, art.t_service_s + float(dt_s))
 
 
 def programmed_matmul(
@@ -533,6 +611,42 @@ class ProgrammedModel:
                 + " — a layer was renamed, or program_model compiled a leaf "
                 "no call site serves."
             )
+
+
+    def reports(self) -> Dict[str, Any]:
+        """Name -> write-verify ``ProgramReport`` (a per-layer tuple for a
+        stacked leaf) of every compiled leaf that has one."""
+        return {name: art.report for name, art in self.by_name.items() if art.report is not None}
+
+    def repair_reports(self) -> Dict[str, Any]:
+        """Name -> ``RepairReport`` (a per-layer tuple for a stacked leaf) of
+        every repaired leaf."""
+        return {name: art.repair for name, art in self.by_name.items() if art.repair is not None}
+
+    def map_artifacts(self, fn: Callable[[ProgrammedLinear], ProgrammedLinear]) -> "ProgrammedModel":
+        """A new ProgrammedModel with ``fn`` applied to every artifact."""
+
+        def walk(tree):
+            if isinstance(tree, ProgrammedLinear):
+                return fn(tree)
+            if isinstance(tree, dict):
+                return {k: walk(v) for k, v in tree.items()}
+            return tree
+
+        return ProgrammedModel(walk(self.artifacts))
+
+    @property
+    def t_service_s(self) -> float:
+        """Fleet service time: the oldest chip's clock."""
+        return max((a.t_service_s for a in self.by_name.values()), default=0.0)
+
+    def age(self, dt_s: float) -> "ProgrammedModel":
+        """Every chip advanced ``dt_s`` seconds of service (no reprogramming)."""
+        return self.map_artifacts(lambda a: age_artifact(a, dt_s))
+
+    def at_time(self, t_s: float) -> "ProgrammedModel":
+        """Every chip at absolute service time ``t_s``."""
+        return self.map_artifacts(lambda a: artifact_at_time(a, t_s))
 
 
 def _program_action(path, leaf, pred, tie_lm_head: bool) -> Optional[str]:

@@ -1,12 +1,12 @@
 """Batched serving, split into a model runner and a slot scheduler
-(counterpart of ``repro.serving.engine``; mesh serving, repair budgets and
-the chip lifecycle — age / health_check / compensate / hot_swap / refresh —
-are not ported and their arguments are not accepted).
+(counterpart of ``repro.serving.engine``; mesh serving and ``expert_chips``
+fleets are not ported and their arguments are not accepted).
 
 ``ModelRunner`` owns the model half: the params, the programmed crossbar chip
-(program-once at construction, optionally under a ``core.planner.ChipPlan``,
-or restored from an artifact store that first passes
-``analysis.verify_store``), prefill /
+(program-once at construction, optionally under a ``core.planner.ChipPlan``
+and a ``spare_cols`` repair budget, or restored from an artifact store that
+first passes ``analysis.verify_store``), the chip's lifecycle (``age`` /
+``health_check`` / ``compensate`` / ``hot_swap`` / ``refresh``), prefill /
 decode and sampling.  ``ServingEngine`` is the synchronous slot scheduler on
 top: a fixed pool of ``max_batch`` cache slots; a pending request is
 prefilled alone (an attention model's prompt zero-padded to a bucket, a
@@ -16,7 +16,11 @@ finished slots are freed and refilled.
 
 The decode tick is compiled as the reference jits it: on the card the pool's
 ``decode_step`` is captured once as a CUDA graph and replayed every tick
-(``serving.graphs.DecodeGraph``); prefill stays eager.
+(``serving.graphs.DecodeGraph``); prefill stays eager.  A captured graph
+reads the artifacts at the addresses it was captured with, so every swap of
+the served chip (``ModelRunner._rebind``) drops it and the next tick
+captures afresh; KV caches, slots and pending requests are untouched, so
+in-flight requests go on at the next tick.
 
 Generation is deterministic given (seed, admission order).  The decode tick
 returns host float32 logits — one device synchronisation per tick.
@@ -32,10 +36,12 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.store import verify_store
-from repro_torch.checkpoint import restore_programmed, save_programmed
+from repro_torch.checkpoint import active_slot, restore_programmed, save_programmed, swap_active
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.planner import ChipPlan
+from repro_torch.device import health as health_mod
 from repro_torch.device import programmed as prog_mod
+from repro_torch.device.models import wants_repair
 from repro_torch.models import layers as layers_mod
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import CrossbarMode, crossbar_mode
@@ -75,6 +81,7 @@ class ModelRunner:
         temperature: float = 0.0,
         seed: int = 0,
         crossbar: Optional[CrossbarMode] = None,
+        spare_cols: Optional[int] = None,
         restore_artifacts: Optional[str] = None,
         verify_coverage: bool = True,
         plan: Optional[ChipPlan] = None,
@@ -90,7 +97,7 @@ class ModelRunner:
         # the chip-plan compiler's per-layer datapath / ADC choices, threaded
         # into program_model at deploy time
         self.plan = plan
-        self.crossbar = self._program_crossbars(crossbar, restore_artifacts)
+        self.crossbar = self._program_crossbars(crossbar, spare_cols, restore_artifacts)
         if verify_coverage:
             self.verify_crossbar_coverage()
         self._decode_graph: Optional[DecodeGraph] = None
@@ -101,12 +108,21 @@ class ModelRunner:
         return self.cfg.tie_embeddings and self.cfg.frontend == "token"
 
     def _program_crossbars(
-        self, crossbar: Optional[CrossbarMode], restore_artifacts: Optional[str] = None
+        self,
+        crossbar: Optional[CrossbarMode],
+        spare_cols: Optional[int] = None,
+        restore_artifacts: Optional[str] = None,
     ):
         """Program-once compilation of the model's weights (deploy time,
         under ``self.plan`` when one is given), or restore of a previously
         saved chip: the store is verified from its manifests first, then
-        loaded bit-for-bit, and no ``program_layer`` call runs."""
+        loaded bit-for-bit, and no ``program_layer`` call runs.
+
+        ``spare_cols`` overrides the device's spare-column budget at deploy
+        time (``device.repair`` then remaps the worst stuck-cell columns of
+        every projection before serving).  0 disables a budget; a positive
+        budget that cannot take effect (no device, no stuck cells, prebuilt
+        or restored artifacts) is refused rather than ignored."""
         if restore_artifacts is not None:
             if crossbar is None or not crossbar.enabled:
                 raise ValueError(
@@ -118,13 +134,19 @@ class ModelRunner:
                     "restore_artifacts= with prebuilt CrossbarMode.programmed "
                     "artifacts: pick one source of truth"
                 )
+            if spare_cols is not None:
+                raise ValueError(
+                    "spare_cols= cannot rebudget a restored chip (not even "
+                    "to 0): the repair plan was baked in when the artifacts "
+                    "were programmed — reprogram with the desired budget"
+                )
             if self.plan is not None:
                 raise ValueError(
                     "plan= cannot replan a restored chip: the datapath / ADC "
                     "/ spare choices were baked in when the artifacts were "
                     "programmed — reprogram with the desired plan"
                 )
-            expected = self._verify_store(restore_artifacts)
+            expected = self._verify_store(restore_artifacts, None, "restore_artifacts=")
             prog = restore_programmed(restore_artifacts, device=self.device)
             # a stale or mismatched store would resolve no artifacts and
             # degrade every projection to per-call reprogramming: cross-check
@@ -143,8 +165,35 @@ class ModelRunner:
                 )
             return dataclasses.replace(crossbar, programmed=prog)
         if crossbar is None or not crossbar.enabled or crossbar.programmed is not None:
+            if spare_cols:
+                raise ValueError(
+                    "spare_cols= needs crossbar serving with a DeviceConfig "
+                    "to repair and no prebuilt artifacts (set spare_cols on "
+                    "the DeviceConfig passed to program_model instead)"
+                )
             return crossbar
-        prog = prog_mod.program_model(
+        if spare_cols is not None:
+            if crossbar.device is None:
+                if spare_cols:
+                    raise ValueError(
+                        "spare_cols= without a CrossbarMode.device: there is "
+                        "no fault model to repair against"
+                    )
+            else:
+                device_cfg = crossbar.device.replace(spare_cols=spare_cols)
+                if spare_cols > 0 and not wants_repair(device_cfg):
+                    raise ValueError(
+                        f"spare_cols={spare_cols} on a device with no "
+                        "stuck-at faults (p_stuck_on == p_stuck_off == 0): "
+                        "nothing to repair"
+                    )
+                crossbar = dataclasses.replace(crossbar, device=device_cfg)
+        return dataclasses.replace(crossbar, programmed=self._program(crossbar))
+
+    def _program(self, crossbar: CrossbarMode):
+        """Program the runner's params under ``crossbar``'s device config and
+        the runner's plan (deploy time and ``refresh``)."""
+        return prog_mod.program_model(
             self.params,
             device_cfg=crossbar.device,
             fast=crossbar.fast,
@@ -152,9 +201,8 @@ class ModelRunner:
             plan=self.plan,
             device=self.device,
         )
-        return dataclasses.replace(crossbar, programmed=prog)
 
-    def _verify_store(self, directory: str) -> Dict[str, tuple]:
+    def _verify_store(self, directory: str, slot: Optional[str], what: str) -> Dict[str, tuple]:
         """Fail-fast static verification of a store before any array loads:
         a corrupt slot pointer, an undecodable spec or plan, inconsistent
         leaf shapes or a wrong name set is refused with the failing rule
@@ -162,7 +210,7 @@ class ModelRunner:
         are left to ``verify_crossbar_coverage``.  Returns the expected
         name -> shape map for the binding cross-check."""
         expected = prog_mod.expected_artifact_names(self.params, tie_lm_head=self._tie_lm_head)
-        report = verify_store(directory, expected=expected)
+        report = verify_store(directory, expected=expected, slot=slot)
         fatal = [
             f for f in report.findings
             if not (f.rule == "name-set" and "orphaned leaf" in f.message)
@@ -170,7 +218,7 @@ class ModelRunner:
         if fatal:
             report.findings[:] = fatal
             raise ValueError(
-                "restore_artifacts= store failed static verification "
+                f"{what} store failed static verification "
                 "(repro_torch.analysis.verify_store): it is internally "
                 "inconsistent or does not match this model —\n" + report.summary()
             )
@@ -211,6 +259,107 @@ class ModelRunner:
     def programmed(self):
         """The bound ``ProgrammedModel`` (None when not crossbar-serving)."""
         return self.crossbar.programmed if self.crossbar is not None else None
+
+    def repair_reports(self):
+        """Path -> ``RepairReport`` (a per-layer tuple for a stacked leaf) of
+        every repaired projection ({} when repair is off)."""
+        prog = self.programmed
+        return prog.repair_reports() if prog is not None else {}
+
+    # ------------------------------------------------------------------
+    # Chip lifecycle: monitor -> compensate -> refresh
+    # ------------------------------------------------------------------
+
+    @property
+    def uptime_s(self) -> float:
+        """Service time of the bound chips, seconds since programming."""
+        prog = self.programmed
+        return prog.t_service_s if prog is not None else 0.0
+
+    def _require_programmed(self, what: str):
+        prog = self.programmed
+        if prog is None:
+            raise ValueError(
+                f"{what} needs programmed crossbar serving: construct the "
+                "engine with crossbar=CrossbarMode(enabled=True, ...)"
+            )
+        return prog
+
+    def _rebind(self, prog) -> None:
+        """Swap the served chip and drop the captured decode tick.
+
+        The graph reads the artifacts at the addresses it was captured with
+        (and ``compensate`` turns ``comp_scale`` from None into a tensor,
+        which changes the program itself), so it is dropped, never patched
+        in place: the next tick captures afresh against the new chip.  KV
+        caches, slots and pending requests belong to the scheduler and are
+        untouched — in-flight requests go on at the next tick."""
+        self._decode_graph = None
+        self.crossbar = dataclasses.replace(self.crossbar, programmed=prog)
+
+    def age(self, dt_s: float) -> None:
+        """Advance every bound chip ``dt_s`` seconds of service (the
+        device's retention drift, no reprogramming; a drift-free chip only
+        advances its clock)."""
+        prog = self._require_programmed("age()")
+        self._rebind(prog.age(dt_s))
+
+    def health_check(self, n_probes: Optional[int] = None, seed: int = 0, budget: Optional[float] = None):
+        """Probe every bound artifact against its digital twin; returns a
+        ``device.health.HealthReport`` (``flagged``: the layers over
+        budget).  Does not touch the chips."""
+        prog = self._require_programmed("health_check()")
+        kw = {}
+        if n_probes is not None:
+            kw["n_probes"] = n_probes
+        if budget is not None:
+            kw["budget"] = budget
+        return health_mod.health_check(prog, seed=seed, **kw)
+
+    def compensate(self, n_probes: Optional[int] = None, seed: int = 0) -> None:
+        """Refit the digital drift compensation (``comp_scale``) of every
+        noisy chip and rebind: no reprogramming."""
+        prog = self._require_programmed("compensate()")
+        kw = {"n_probes": n_probes} if n_probes is not None else {}
+        self._rebind(health_mod.compensate_model(prog, seed=seed, **kw))
+
+    def hot_swap(self, directory: str, slot: Optional[str] = None) -> None:
+        """Rebind the chip from an artifact store between ticks: the store is
+        verified first (``analysis.verify_store``, as a restore is), restored
+        (the ``ACTIVE`` slot unless ``slot`` is forced) and cross-checked
+        against this model's projections; a corrupt or mismatched store is
+        refused and the old chip keeps serving."""
+        self._require_programmed("hot_swap()")
+        expected = self._verify_store(directory, slot, "hot_swap")
+        prog = restore_programmed(directory, device=self.device, slot=slot)
+        bad = sorted(name for name, shape in expected.items() if prog.lookup(name, shape) is None)
+        if bad:
+            raise ValueError(
+                f"hot_swap store at {directory!r} does not match this model: "
+                f"{len(bad)}/{len(expected)} projections missing or "
+                f"shape-mismatched ({', '.join(bad[:5])}"
+                + (", ..." if len(bad) > 5 else "") + ")"
+            )
+        self._rebind(prog)
+
+    def refresh(self, directory: Optional[str] = None) -> Optional[str]:
+        """Reprogram fresh chips and swap them in: the params under the
+        runner's device config and plan (deterministic: the chip the engine
+        started with, at service time zero).  With ``directory`` the fresh
+        chip is written to the *inactive* store slot, the ``ACTIVE``
+        pointer is swapped and the runner hot-swaps from the store; returns
+        the committed slot.  Without one the chip is rebound directly."""
+        self._require_programmed("refresh()")
+        prog = self._program(self.crossbar)
+        if directory is None:
+            self._rebind(prog)
+            return None
+        target = "B" if active_slot(directory) == "A" else "A"
+        save_programmed(directory, prog, slot=target)
+        del prog  # the store's copy is what gets bound
+        swap_active(directory, target)
+        self.hot_swap(directory)
+        return target
 
     def _with_crossbar(self, fn):
         """Run ``fn`` under the runner's crossbar mode with the programmed
@@ -314,6 +463,7 @@ class ServingEngine:
         temperature: float = 0.0,
         seed: int = 0,
         crossbar: Optional[CrossbarMode] = None,
+        spare_cols: Optional[int] = None,
         restore_artifacts: Optional[str] = None,
         verify_coverage: bool = True,
         plan: Optional[ChipPlan] = None,
@@ -327,6 +477,7 @@ class ServingEngine:
             temperature=temperature,
             seed=seed,
             crossbar=crossbar,
+            spare_cols=spare_cols,
             restore_artifacts=restore_artifacts,
             verify_coverage=verify_coverage,
             plan=plan,
@@ -370,6 +521,29 @@ class ServingEngine:
 
     def save_artifacts(self, directory: str, slot: Optional[str] = None) -> str:
         return self.runner.save_artifacts(directory, slot=slot)
+
+    # -- the chip lifecycle (see ModelRunner) ---------------------------
+    @property
+    def uptime_s(self) -> float:
+        return self.runner.uptime_s
+
+    def repair_reports(self):
+        return self.runner.repair_reports()
+
+    def age(self, dt_s: float) -> None:
+        self.runner.age(dt_s)
+
+    def health_check(self, n_probes: Optional[int] = None, seed: int = 0, budget: Optional[float] = None):
+        return self.runner.health_check(n_probes=n_probes, seed=seed, budget=budget)
+
+    def compensate(self, n_probes: Optional[int] = None, seed: int = 0) -> None:
+        self.runner.compensate(n_probes=n_probes, seed=seed)
+
+    def hot_swap(self, directory: str, slot: Optional[str] = None) -> None:
+        self.runner.hot_swap(directory, slot=slot)
+
+    def refresh(self, directory: Optional[str] = None) -> Optional[str]:
+        return self.runner.refresh(directory)
 
     # ------------------------------------------------------------------
     def submit(

@@ -279,13 +279,25 @@ def test_planned_noisy_chip_without_stuck_cells_equals_unplanned():
 
 
 def test_spares_on_a_device_with_stuck_cells_raise_and_name_repair():
-    w, _ = _layer(4)
+    """A plan's spare budget on a device with stuck cells programs a
+    repaired chip (it raised before repair was ported): the plan's budget
+    overrides the device's, exactly as the device's own budget would."""
+    w, x = _layer(4)
     plan = tplanner.LayerPlan(name="w", datapath="karatsuba2", adc_mode="safe_adaptive", spare_cols=4)
-    with pytest.raises(NotImplementedError, match="repair"):
-        tprog.program_layer(torch.from_numpy(w), device_cfg=TDev(**STUCK), plan=plan)
-    # without spares the same device programs under the plan
+    art = tprog.program_layer(torch.from_numpy(w), device_cfg=TDev(**STUCK), plan=plan)
+    assert art.noisy and art.device == TDev(**STUCK, spare_cols=4)
+    assert art.g_spare is not None and art.out_gather is not None and art.repair.n_repaired > 0
+    own = tprog.program_layer(torch.from_numpy(w), device_cfg=TDev(**STUCK, spare_cols=4))
+    assert torch.equal(art.g_eff, own.g_eff) and torch.equal(art.g_spare, own.g_spare)
+    assert torch.equal(art.out_gather, own.out_gather)
+    tprog.reset_planned_calls()
+    y = tprog.programmed_matmul(torch.from_numpy(x), art)
+    assert torch.equal(y, tprog.programmed_matmul(torch.from_numpy(x), dataclasses.replace(own, plan=plan)))
+    assert sum(tprog.PLANNED_CALLS.values()) == 0  # a noisy chip keeps the device kernel
+    # without spares the same device programs under the plan, unrepaired
     art = tprog.program_layer(torch.from_numpy(w), device_cfg=TDev(**STUCK), plan=dataclasses.replace(plan, spare_cols=0))
-    assert art.noisy and art.plan.spare_cols == 0
+    assert art.noisy and art.plan.spare_cols == 0 and art.g_spare is None and art.repair is None
+    assert not torch.equal(art.g_eff, own.g_eff)
 
 
 def test_program_model_attaches_plans_by_name(tiny_lm):

@@ -298,21 +298,33 @@ def test_noisy_program_layer_statistics_match_reference():
 
 
 def test_unported_features_raise_instead_of_degrading():
-    w = torch.zeros((8, 4))
-    with pytest.raises(NotImplementedError):
-        tprog.program_layer(w, with_report=True)
-    with pytest.raises(NotImplementedError):
-        tprog.program_layer(w, chips=(0,))
-    # a plan's spare budget on a device with stuck cells needs repair
+    """``with_report=``, ``chips=``, spare budgets and ``repair=True`` are
+    ported (they raised before); what the port still refuses raises."""
     from repro_torch.core.planner import LayerPlan
+    from repro_torch.device.program import ProgramReport
+    from repro_torch.device.repair import RepairReport
 
-    with pytest.raises(NotImplementedError, match="repair"):
-        tprog.program_layer(w, device_cfg=TDev(p_stuck_on=0.01), plan=LayerPlan(name="w", spare_cols=2))
-    with pytest.raises(NotImplementedError):
-        tprog.program_layer(w, device_cfg=TDev(p_stuck_on=0.01, spare_cols=2))
-    with pytest.raises(NotImplementedError):
-        tdm.effective_cell_codes(torch.zeros((8, 4), dtype=torch.int64), TDEFAULT,
-                                 TDev(p_stuck_on=0.01, spare_cols=2), repair=True)
+    w = torch.from_numpy(np.random.default_rng(1).normal(size=(8, 4)).astype(np.float32))
+    assert tprog.program_layer(w, with_report=True).report is None  # an ideal chip writes nothing
+    rep = tprog.program_layer(w, device_cfg=TDev(sigma=0.1), with_report=True).report
+    assert isinstance(rep, ProgramReport) and rep.iterations == 1
+    # chips= spreads the layer axis of a stacked leaf and must match its length
+    assert tprog.program_layer(torch.stack([w, w]), device_cfg=TDev(sigma=0.1), chips=(1, 2)).noisy
+    with pytest.raises(ValueError, match="chips"):
+        tprog.program_layer(torch.stack([w, w]), device_cfg=TDev(sigma=0.1), chips=(0,))
+    with pytest.raises(ValueError, match="DeviceConfig"):
+        tprog.program_layer(torch.stack([w, w]), chips=(0, 1))
+    dev = TDev(p_stuck_on=0.05, spare_cols=2)
+    planned = tprog.program_layer(w, device_cfg=TDev(p_stuck_on=0.05), plan=LayerPlan(name="w", spare_cols=2))
+    own = tprog.program_layer(w, device_cfg=dev)
+    for art in (planned, own):
+        assert isinstance(art.repair, RepairReport) and art.g_spare.shape == (8, 8, 2)
+    assert torch.equal(planned.g_eff, own.g_eff)
+    wb = torch.from_numpy(np.random.default_rng(2).integers(0, 1 << 16, size=(8, 4)))
+    assert torch.equal(
+        tdm.effective_cell_codes(wb, TDEFAULT, dev, repair=True),
+        tdm.effective_cell_codes(wb, TDEFAULT, dev),  # repair is the default, as in the reference
+    )
     art = tprog.program_layer(torch.ones((8, 4)))
     import dataclasses
     import types
