@@ -77,14 +77,50 @@ Phases (one JSON line each; any failure is an uncaught exception):
                the copy into the slot) apart from the ticks.
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
                (ideal, paper, noisy, planned, xlstm, gemma2, minitron,
-               starcoder2): device busy time, launches per
-               tick, the heaviest kernels, and each of our kernels' device
-               time and calls a tick inside the replays, held equal to the
-               launches the replays credited to the wrappers' counters
+               starcoder2), and 24 ticks of serve_traffic's mix (traffic):
+               device busy time and idle share, launches per tick, the
+               heaviest kernels, and each of our kernels' device time and
+               calls a tick, held equal to the launches the window added to
+               the wrappers' counters
   graph_vs_eager_*  12 ticks of a full pool by replay and, alternating,
                eagerly on a clone of the cache: logits bit-equal every tick,
                caches after the last; both tick medians and a replay's
                device span
+  The traffic tier, after tick_profile_ideal on the same chip (xlstm's after
+  tick_profile_xlstm):
+  serve_traffic_exact  smollm-360m at full width and depth from an ideal
+               chip (max_batch 4, max_seq 256): the short_long_full mix's 32
+               requests submitted up front through the slot-loop engine, then
+               through ``ContinuousBatchingScheduler`` on its runner (default
+               pool): tokens equal, one capture and a replay a decode tick,
+               the fast kernel on every projection of every prefill and tick
+  serve_traffic  the same chip under the seeded Poisson mix (short: 24-token
+               prompts, 8 new tokens, a 16-tick deadline; long: 192 tokens, 32
+               new, no deadline; 0.5 arrivals a tick) on a 40-block pool of 16
+               tokens: a preemption and a resume at least, the first resumed
+               prefix ``torch.equal`` to its page-out snapshot, the schedule
+               equal to the port's on the CPU (2 layers, digital), a second
+               run identical, one capture a run; tokens/s, latency in ticks,
+               step ms with and without an admission, admission ms by bucket,
+               page-out / page-in ms and bytes; a third run, identical too,
+               profiles ticks 52-75 (tick_profile_traffic)
+  farm         ``ChipFarm`` replicas restored from one store of that chip
+               (max_batch 2): the mix under round_robin and least_loaded
+               (placements equal to the CPU farm's), one replica against a bare
+               engine (tokens equal), ticks to drain on 1 and 2 replicas (gate
+               > 1.3x); wall-clock tokens/s printed, not gated: the replicas
+               share one card and step one after the other
+  farm_lifecycle  two replicas of a 2-layer full-width copy on
+               LIFECYCLE_DEVICE (noisy kernel): replica 0 aged, drained,
+               refreshed through the store's slots and undrained while replica
+               1 serves: one recapture on replica 0, replica 1's decode graph
+               the same object throughout, replica 0's tokens a fresh
+               restore's
+  serve_traffic_xlstm  xlstm-350m through the scheduler against its slot
+               loop (tokens equal, the first token of each request from its
+               prefill; the scan kernel on each sLSTM layer of every forward;
+               one block a request) and one live slot paged out and into
+               another free slot (every state leaf equal)
 
 Needs one CUDA device; exits non-zero without one.  ``--quick`` (not used by
 the default run) cuts the kernel cases and the model depth for a fast check
@@ -93,6 +129,7 @@ that the kernels build and agree.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -127,8 +164,11 @@ from repro_torch.kernels import slstm_scan as kscan  # noqa: E402
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_plain  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.layers import CrossbarMode, crossbar_misses, crossbar_mode, reset_crossbar_misses  # noqa: E402
-from repro_torch.serving import ServingEngine  # noqa: E402
-from repro_torch.serving.graphs import cache_leaves, clone_cache  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    BlockCacheConfig, ChipFarm, ContinuousBatchingScheduler, ModelRunner, ServingEngine,
+)
+from repro_torch.serving.farm import POLICIES  # noqa: E402
+from repro_torch.serving.graphs import cache_leaves, clone_cache, named_leaves  # noqa: E402
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor ops/s and
 # float32 ops/s outside the tensor cores.
@@ -146,6 +186,19 @@ RECOVERY_DEVICE = DeviceConfig(sigma=0.02, p_stuck_on=5e-3, p_stuck_off=5e-3)
 # lifecycle: a drifting chip with stuck cells and 4 spares a column group
 LIFECYCLE_DEVICE = DeviceConfig(sigma=0.02, p_stuck_on=1e-3, p_stuck_off=1e-3, drift_nu=0.05, spare_cols=4)
 LIFECYCLE_AGE_S = 1e7
+# the traffic phases (smollm-360m from an ideal chip, xlstm-350m): a pool of
+# 4 slots of 256 tokens; serve_traffic's block pool holds 40 blocks of 16
+# tokens against the 64 a dense pool would, so the mix below preempts
+TRAFFIC_BATCH, TRAFFIC_SEQ = 4, 256
+TRAFFIC_POOL = BlockCacheConfig(block_size=16, n_blocks=40)
+# deadlines in ticks from arrival by prompt class (None: no deadline)
+TRAFFIC_DEADLINE = {"short": 16, "long": None}
+# serve_traffic's profiled window: (phase, first tick, ticks); at seed 0 it
+# holds 6 admissions and a page move
+TRAFFIC_WINDOW = ("tick_profile_traffic", 52, 24)
+# the reference's gate on a farm's ticks to drain, 1 replica against 2
+# (benchmarks/serving_traffic.py), both at max_batch FARM_BATCH
+FARM_SPEEDUP_MIN, FARM_BATCH = 1.3, 2
 PLANNED = ("karatsuba1", "karatsuba2", "strassen")
 MAIN_SHAPES = [(960, 960), (960, 320), (960, 5120), (2560, 960), (960, 49152)]
 XLSTM_HEAD = (1024, 50304)  # the tied head of xlstm-350m, K x N
@@ -176,8 +229,9 @@ REL_L2_MAX = {"smollm-360m": 0.25, "gemma2-9b": 0.6, "minitron-4b": 0.45, "starc
 # depth at full width: a full gemma2-9b store is 37 GB of npz
 STORE_CHECK_LAYERS = 2
 # (B, S) of the scan on the xlstm path: a decode tick of the slot pool, one
-# decode row, and prefills of 32 / 48 (the longest prompt served) / 256 tokens
-SCAN_SHAPES = [(4, 1), (1, 1), (1, 32), (1, 48), (1, 256)]
+# decode row, and prefills of 24 / 192 (the traffic mix's short and long
+# prompts), 32 / 48 (the longest prompt served) / 256 tokens
+SCAN_SHAPES = [(4, 1), (1, 1), (1, 24), (1, 32), (1, 48), (1, 192), (1, 256)]
 SCAN_HEADS, SCAN_DH = 4, 512  # xlstm-350m: 4 heads of 2048 / 4
 # (label, B, S, H, dh) held against the plain version, untimed: dh not a
 # multiple of the cluster's 16-byte column units (48, 100), dh = 2048 (R
@@ -188,6 +242,9 @@ SCAN_EDGES = [
     ("B5", 5, 3, 4, 512), ("B9", 9, 3, 4, 512), ("B9_decode", 9, 1, 4, 512), ("H1", 1, 8, 1, 512),
 ]
 SCAN_KERNEL = "slstm_cluster_kernel"  # its name in a profiler trace
+# the spin kernels (torch.cuda._sleep) that open each profiled window to
+# take the profiler's loss of a session's first records (profile_window)
+PROFILE_PROLOGUE, PROLOGUE_SPIN_CYCLES, PROLOGUE_KERNEL = 512, 1000, "spin_kernel"
 # the kernel each launch counter counts, by its name in a profiler trace
 TRACE_NAMES = {
     "fast": "fast_kernel", "planes": "paper_mma_kernel", "noisy": "noisy_mma_kernel", "slstm_scan": SCAN_KERNEL,
@@ -452,13 +509,23 @@ def kernels_phase(dev, quick: bool):
     for kind, tag, base, cfg in families:
         main = tag in ("ideal", "safe_adaptive_signed")
         # main-path shapes, layer-scaled spec (drop_lsb >= 20): M = 4 is a
-        # decode tick, 32 and 64 are the prefill buckets
+        # decode tick, 32 and 64 are prefill buckets (256 below)
         for K, N in (MAIN_SHAPES[:2] if quick else MAIN_SHAPES):
             for M in ((4,) if quick else (4, 32, 64) if main else (4, 32)):
                 seed += 1
                 cases.append(run_case(
                     kind, f"{tag}/main", M, K, N, layer_scaled_spec(base, K), cfg,
                     sparse=False, skip=True, seed=seed, dev=dev, timed=main,
+                ))
+        if main and kind != "planes" and not quick:
+            # M = 256: the prefill bucket of the traffic mix's long prompts,
+            # on the fast kernel (the ideal chip) and the noisy one (the
+            # farm's lifecycle chip); seeds of their own: the other cases
+            # keep theirs
+            for K, N in MAIN_SHAPES:
+                cases.append(run_case(
+                    kind, f"{tag}/main", 256, K, N, layer_scaled_spec(base, K), cfg,
+                    sparse=False, skip=True, seed=9000 + len(cases), dev=dev, timed=True,
                 ))
         if kind == "fast" and tag == "ideal":
             # the xlstm-350m head: M = 1 is a prefill's last position, M = 4
@@ -863,6 +930,38 @@ def make_requests(cfg, seed, n=6):
     return [rng.integers(0, cfg.vocab_size, size=int(rng.integers(8, 49))) for _ in range(n)]
 
 
+class timed_admissions:
+    """Within the block, every admission of ``runner`` (its eager prefill and
+    the copy into the slot) is timed, device synchronised on both sides:
+    ``seconds[length]`` afterwards, by the length of the prefill that ran
+    (``runner.prefill_len``: a bucket; a recurrent prompt's exact length)."""
+
+    def __init__(self, runner):
+        self.runner, self.seconds = runner, {}
+
+    @property
+    def count(self) -> int:
+        return sum(len(v) for v in self.seconds.values())
+
+    def __enter__(self):
+        runner = self.runner
+
+        def admit(cache, slot, req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = type(runner).admit_slot(runner, cache, slot, req)
+            torch.cuda.synchronize()
+            length = runner.prefill_len(runner.check_prompt(req.prompt, req.truncate))
+            self.seconds.setdefault(length, []).append(time.perf_counter() - t0)
+            return out
+
+        runner.admit_slot = admit
+        return self
+
+    def __exit__(self, *exc):
+        del self.runner.admit_slot
+
+
 def drive(eng, prompts, max_new):
     """Submit, then step until drained; returns (requests, prefills, ticks,
     seconds, pure decode-tick seconds, tokens appended by decode ticks,
@@ -871,21 +970,10 @@ def drive(eng, prompts, max_new):
     for p in prompts:
         eng.submit(p, max_new_tokens=max_new)
     ticks = decoded = 0
-    tick_s, admit_s = [], []
-    runner = eng.runner
-
-    def timed_admit(*args):
+    tick_s = []
+    with timed_admissions(eng.runner) as adm:
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = type(runner).admit_slot(runner, *args)
-        torch.cuda.synchronize()
-        admit_s.append(time.perf_counter() - t)
-        return out
-
-    runner.admit_slot = timed_admit
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
+        t0 = time.perf_counter()
         while eng.pending or any(s is not None for s in eng.slots):
             admitted = len(eng.pending)
             t1 = time.perf_counter()
@@ -896,10 +984,9 @@ def drive(eng, prompts, max_new):
             decoded += n
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    finally:
-        del runner.admit_slot
     reqs = eng.run_until_done(max_ticks=0)  # the completion ledger
-    return reqs, len(prompts), ticks, seconds, tick_s, decoded, sum(admit_s)
+    admit_s = sum(sum(v) for v in adm.seconds.values())
+    return reqs, len(prompts), ticks, seconds, tick_s, decoded, admit_s
 
 
 def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check, plan=None):
@@ -1089,49 +1176,72 @@ def serve_dense(phase, arch, dev, seed, quick):
 
 def tick_profile(phase, eng, prompts, ticks=3):
     """Where one decode tick goes: ``ticks`` steady decode ticks of a full
-    slot pool (graph replays) under ``torch.profiler`` (CPU + CUDA
-    activities).  Device busy time is the sum of the kernels' own device
-    time; the wall time is taken with the profiler on and is not the tick
-    time reported by the serve phase.  ``kernels``: each of our kernels that
-    ran in the window, its device time and calls a tick as the profiler saw
-    them inside the replays, held equal to the launches a tick that the
-    replays credited to the wrappers' counters (summed over every trace entry
-    that names the kernel)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    slot pool (graph replays) in one ``profile_window``."""
     for p in prompts[:4]:
         eng.submit(p, max_new_tokens=ticks + 8)
     for _ in range(3):  # admission and warm ticks
         eng.step()
-    torch.cuda.synchronize()
-    kvmm.reset_counters()
-    kscan.reset_counters()
-    tprog.reset_planned_calls()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def steps():
         for _ in range(ticks):
             eng.step()
+
+    line = profile_window(phase, steps, ticks)
+    eng.run_until_done()
+    return line
+
+
+def profile_window(phase, run, ticks):
+    """``run()`` (``ticks`` steps of a serve loop; it may return a dict of
+    fields for the line) under ``torch.profiler``
+    (CPU + CUDA activities).  Device busy time is the sum of the kernels' own
+    device time; the wall time is taken with the profiler on and is not the
+    tick time reported by the serve phases.  ``kernels``: each of our kernels
+    that ran in the window, its device time and calls a tick as the profiler
+    saw them (replayed or eager), held equal to the launches a tick that the
+    window added to the wrappers' counters (summed over every trace entry that
+    names the kernel).
+
+    The profiler loses the first device records of a session, more the
+    longer the process has run, whether or not the device idles before the
+    first step.  So each window opens with ``PROFILE_PROLOGUE`` spin kernels
+    and a synchronise: the loss falls on them, and the line reports how many
+    were lost (``prologue_records_lost``).  A window that saw none of them
+    may have lost records of its own, and fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counters = lambda: (dict(kvmm.LAUNCHES, **kscan.LAUNCHES), dict(tprog.PLANNED_CALLS))
+    torch.cuda.synchronize()
+    before = counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PROLOGUE):
+            torch.cuda._sleep(PROLOGUE_SPIN_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extra = run() or {}
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    credited = {k: n for k, n in dict(kvmm.LAUNCHES, **kscan.LAUNCHES).items() if n}
-    planned = {k: n / ticks for k, n in tprog.PLANNED_CALLS.items() if n}
-    eng.run_until_done()
-    kernels = []
+    after = counters()
+    credited = {k: n - before[0].get(k, 0) for k, n in after[0].items() if n - before[0].get(k, 0)}
+    planned = {k: (n - before[1].get(k, 0)) / ticks for k, n in after[1].items() if n - before[1].get(k, 0)}
+    kernels, prologue_seen = [], 0
     for e in prof.key_averages():
         # device-side entries only (kernels, memcpys): a CPU op's entry counts
         # the device time of the kernels it launched a second time
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            kernels.append((e.key, e.self_device_time_total / 1e3, e.count))
+            if PROLOGUE_KERNEL in e.key:
+                prologue_seen += e.count
+            else:
+                kernels.append((e.key, e.self_device_time_total / 1e3, e.count))
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     line = dict(
-        phase=phase, ticks=ticks, wall_ms_per_tick_profiled=wall_ms / ticks,
+        phase=phase, ticks=ticks, **extra, wall_ms_per_tick_profiled=wall_ms / ticks,
         device_busy_ms_per_tick=busy_ms / ticks,
         device_idle_share=(1.0 - busy_ms / wall_ms) if wall_ms else None,
         device_launches_per_tick=sum(k[2] for k in kernels) / ticks,
         top_device_time=[dict(name=k[0][:60], ms_per_tick=k[1] / ticks, calls_per_tick=k[2] / ticks) for k in kernels[:8]],
-        kernels=[], planned_calls_per_tick=planned,
+        kernels=[], planned_calls_per_tick=planned, prologue_records_lost=PROFILE_PROLOGUE - prologue_seen,
         # trace entries of our three VMM kernels, credited or not
         vmm_kernel_calls_per_tick=sum(
             k[2] for k in kernels if any(TRACE_NAMES[c] in k[0] for c in VMM_COUNTERS)
@@ -1147,6 +1257,10 @@ def tick_profile(phase, eng, prompts, ticks=3):
         ))
     line["profiler_sees_graph_kernels"] = all(k["calls_per_tick"] > 0 for k in line["kernels"])
     emit(line)
+    require(
+        prologue_seen > 0,
+        f"{phase}: the profiler lost all {PROFILE_PROLOGUE} prologue records, so maybe some of the window's",
+    )
     require(line["kernels"] or planned, f"{phase}: no kernel launch or planned call was credited in the window")
     for k in line["kernels"]:
         require(
@@ -1632,6 +1746,590 @@ def lifecycle(cfg, params, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# traffic phases: the continuous-batching scheduler, the block pool, the farm
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PromptClass:
+    """One request shape in a traffic mix (a copy of the one in
+    ``benchmarks/serving_traffic.py``, which imports the JAX package)."""
+
+    name: str
+    prompt_len: int
+    max_new_tokens: int
+    weight: float  # relative admission probability within the mix
+
+
+@dataclasses.dataclass(frozen=True)
+class TrafficMix:
+    """A seeded Poisson arrival process over prompt classes (a copy of the
+    one in ``benchmarks/serving_traffic.py``).  ``rate`` is the mean number
+    of arrivals per decode tick; class choice and prompt tokens draw from the
+    mix's own seeded generator, so one value is one request schedule."""
+
+    name: str
+    classes: tuple
+    rate: float
+    n_requests: int
+    seed: int = 0
+
+    def sample_arrivals(self, vocab: int):
+        """(arrival_tick, class, prompt) for each request, tick-ordered."""
+        rng = np.random.default_rng(self.seed)
+        w = np.asarray([c.weight for c in self.classes], np.float64)
+        w = w / w.sum()
+        out = []
+        tick = 0
+        while len(out) < self.n_requests:
+            for _ in range(int(rng.poisson(self.rate))):
+                if len(out) >= self.n_requests:
+                    break
+                cls = self.classes[int(rng.choice(len(self.classes), p=w))]
+                prompt = rng.integers(1, vocab, size=cls.prompt_len).astype(np.int32)
+                out.append((tick, cls, prompt))
+            tick += 1
+        return out
+
+
+# the reference's short/long mix at smollm-360m's scale: mostly short
+# interactive prompts (one 32-token prefill bucket) with a long-prompt tail
+# (the 256 bucket), one arrival every other tick on average; the seed is
+# the run's --seed
+SHORT_LONG_FULL = TrafficMix(
+    name="short_long_full",
+    classes=(
+        PromptClass("short", prompt_len=24, max_new_tokens=8, weight=0.7),
+        PromptClass("long", prompt_len=192, max_new_tokens=32, weight=0.3),
+    ),
+    rate=0.5,
+    n_requests=32,
+)
+
+
+def slot_state(cache, cfg, slot, pos):
+    """Views of one slot's live cache: each sequence leaf's positions < pos,
+    each state leaf whole (``model.cache_axes`` says which is which)."""
+    axes = dict(named_leaves(model_lib.cache_axes(cfg)))
+    return [t[:, slot, :pos] if "cache_seq" in axes[n] else t[:, slot] for n, t in named_leaves(cache)]
+
+
+def ms_stats(seconds):
+    """Count, p50 and p99 milliseconds of a list of host seconds."""
+    if not seconds:
+        return dict(n=0, p50_ms=None, p99_ms=None)
+    ms = 1e3 * np.asarray(seconds)
+    return dict(n=len(ms), p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)))
+
+
+def traffic_run(runner, arrivals, block=None, deadlines=None, window=None):
+    """Serve ``arrivals`` through a new ``ContinuousBatchingScheduler`` on
+    ``runner``.  ``deadlines=None``: every request submitted up front with no
+    deadline (the run held to the slot loop); else each at its arrival tick
+    with its class's deadline.  The scheduler keeps no clock and no counts, so
+    they are taken from outside: each step's host seconds, by whether it ran
+    an admission (a prefill), a page-out or page-in, or only the decode tick;
+    each admission's seconds by bucket; each page-out's and page-in's seconds
+    and host bytes; the decode graphs the run used.  At the first page-out the
+    slot's prefix is cloned, and held ``torch.equal`` to the slot its page-in
+    fills.  ``window`` = (phase, first tick, ticks): those ticks run in one
+    ``profile_window`` (its line is the result's ``profile``).  The launch
+    counters and the crossbar misses count this run only."""
+    sched = ContinuousBatchingScheduler(runner, max_batch=TRAFFIC_BATCH, block=block)
+    kv = sched.kv
+    paging = dict(out_s=[], in_s=[], bytes=[])
+    first = {}
+    real_out, real_in = kv.page_out, kv.page_in
+
+    def page_out(rid, slot, pos, last_tok):
+        prefix = slot_state(kv.cache, runner.cfg, slot, pos)
+        if not first:
+            first.update(rid=rid, prefix=[t.clone() for t in prefix])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_out(rid, slot, pos, last_tok)
+        paging["out_s"].append(time.perf_counter() - t0)
+        paging["bytes"].append(sum(t.numel() * t.element_size() for t in prefix))
+
+    def page_in(rid, slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pos, last_tok = real_in(rid, slot)
+        torch.cuda.synchronize()
+        paging["in_s"].append(time.perf_counter() - t0)
+        if first.get("rid") == rid and "equal" not in first:
+            back = slot_state(kv.cache, runner.cfg, slot, pos)
+            first["equal"] = all(torch.equal(a, b) for a, b in zip(first["prefix"], back))
+        return pos, last_tok
+
+    kv.page_out, kv.page_in = page_out, page_in
+    queue = list(arrivals)
+    steps = dict(admission=[], paging=[], decode_only=[])
+    graphs, counts = [], dict(decode_ticks=0, idle_ticks=0, decoded_tokens=0)
+
+    def one_step():
+        while queue and (deadlines is None or queue[0][0] <= sched.tick):
+            _, cls, prompt = queue.pop(0)
+            sched.submit(
+                prompt, max_new_tokens=cls.max_new_tokens,
+                deadline=None if deadlines is None else deadlines[cls.name],
+            )
+        admitted, paged = adm.count, len(paging["out_s"]) + len(paging["in_s"])
+        t0 = time.perf_counter()
+        n = sched.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not n:
+            counts["idle_ticks"] += 1
+            return
+        counts["decode_ticks"] += 1
+        counts["decoded_tokens"] += n
+        if not graphs or runner.decode_graph is not graphs[-1]:
+            graphs.append(runner.decode_graph)
+        if adm.count > admitted:
+            steps["admission"].append(dt)
+        elif len(paging["out_s"]) + len(paging["in_s"]) > paged:
+            steps["paging"].append(dt)
+        else:
+            steps["decode_only"].append(dt)
+
+    def window_steps():
+        admitted, paged = adm.count, len(paging["out_s"]) + len(paging["in_s"])
+        for _ in range(window[2]):
+            one_step()
+        return dict(prefills=adm.count - admitted, page_moves=len(paging["out_s"]) + len(paging["in_s"]) - paged)
+
+    profiled = None
+    reset_crossbar_misses()
+    kvmm.reset_counters()
+    kscan.reset_counters()
+    tprog.reset_planned_calls()
+    with timed_admissions(runner) as adm:
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        while queue or sched.load:
+            if window is not None and profiled is None and sched.tick == window[1]:
+                profiled = profile_window(window[0], window_steps, window[2])
+            else:
+                one_step()
+        seconds = time.perf_counter() - t_start
+    reqs = sorted({**sched.completed, **sched.expired}.values(), key=lambda r: r.rid)
+    n_tok = sum(len(r.generated) for r in reqs)
+    latency = [r.finish - r.arrival for r in reqs if not r.expired]
+    return dict(
+        block_size=kv.block_size, pool_blocks=kv.n_blocks, requests=len(reqs), completed=len(sched.completed), expired=len(sched.expired),
+        ticks=sched.tick, **counts, prefills=adm.count,
+        preemptions=len(paging["out_s"]), resumes=len(paging["in_s"]),
+        first_page_in_equal=first.get("equal"), new_tokens=n_tok, seconds=seconds,
+        tokens_per_s=n_tok / seconds, tokens_per_tick=n_tok / max(1, sched.tick),
+        latency_ticks_p50=float(np.percentile(latency, 50)) if latency else None,
+        latency_ticks_p99=float(np.percentile(latency, 99)) if latency else None,
+        step_ms={k: ms_stats(v) for k, v in steps.items()},
+        admission_ms={str(b): ms_stats(v) for b, v in sorted(adm.seconds.items())},
+        page_out_ms=[1e3 * x for x in paging["out_s"]], page_in_ms=[1e3 * x for x in paging["in_s"]],
+        page_out_bytes=paging["bytes"], captures=len(graphs),
+        graph_replays=graphs[-1].replays if graphs else 0,
+        launches=dict(kvmm.LAUNCHES, **kscan.LAUNCHES, **tprog.PLANNED_CALLS),
+        plain_calls=dict(kvmm.PLAIN_CALLS, **kscan.PLAIN_CALLS), misses=len(crossbar_misses()),
+        schedule=[(r.rid, r.arrival, r.finish, r.expired, len(r.generated)) for r in reqs],
+        tokens=[r.generated for r in reqs], profile=profiled,
+    )
+
+
+def require_kernels(phase, run, per_forward, forwards=None):
+    """The run's launches (``run``: a dict with ``launches``, ``plain_calls``,
+    ``misses``): ``per_forward`` ({counter: launches a forward}) on every
+    forward (``forwards``, default the run's prefills + decode ticks), no
+    other kernel, no plain version, no crossbar miss."""
+    forwards = run["prefills"] + run["decode_ticks"] if forwards is None else forwards
+    launches = run["launches"]
+    want = {k: per_forward.get(k, 0) * forwards for k in launches}
+    require(launches == want, f"{phase}: launches {launches}, expected {want} ({forwards} forwards)")
+    require(sum(run["plain_calls"].values()) == 0, f"{phase}: plain versions ran: {run['plain_calls']}")
+    require(not run["misses"], f"{phase}: {run['misses']} crossbar misses")
+
+
+def public(run):
+    """A run's numbers for its JSON line (without the token lists)."""
+    return {k: v for k, v in run.items() if k not in ("tokens", "schedule", "profile")}
+
+
+def farm_run(farm, arrivals):
+    """Submit every request to ``farm`` up front and step it until every
+    replica is idle (placement is decided at submission).  Returns the rids,
+    the farm ticks, the seconds, the tokens by rid, and each replica's
+    admissions, decode graphs and replays (and their totals, the run's
+    forwards); the launch counters and crossbar misses count this run
+    only."""
+    reset_crossbar_misses()
+    kvmm.reset_counters()
+    kscan.reset_counters()
+    rids = [farm.submit(p, max_new_tokens=c.max_new_tokens) for _, c, p in arrivals]
+    graphs = [[] for _ in farm.replicas]
+    adms = [timed_admissions(e.runner) for e in farm.replicas]
+    ticks = 0
+    with contextlib.ExitStack() as stack:
+        for a in adms:
+            stack.enter_context(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while not all(farm.is_idle(i) for i in range(farm.n_replicas)):
+            farm.step()
+            ticks += 1
+            for seen, eng in zip(graphs, farm.replicas):
+                g = eng.runner.decode_graph
+                if g is not None and (not seen or seen[-1] is not g):
+                    seen.append(g)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    reqs = farm.run_until_done(max_ticks=0)
+    n_tok = sum(len(r.generated) for r in reqs)
+    replays = [g[-1].replays if g else 0 for g in graphs]
+    return dict(
+        replicas=farm.n_replicas, policy=farm.policy, rids=rids,
+        placements=[farm.replica_of(r) for r in rids], ticks=ticks, seconds=seconds,
+        new_tokens=n_tok, wall_tokens_per_s=n_tok / seconds, tokens={r.rid: r.generated for r in reqs},
+        prefills_by_replica=[a.count for a in adms], captures=[len(g) for g in graphs],
+        replays_by_replica=replays, prefills=sum(a.count for a in adms), decode_ticks=sum(replays),
+        launches=dict(kvmm.LAUNCHES, **kscan.LAUNCHES), plain_calls=dict(kvmm.PLAIN_CALLS, **kscan.PLAIN_CALLS),
+        misses=len(crossbar_misses()),
+    )
+
+
+def schedule_on_cpu(cfg, seed, arrivals):
+    """The traffic run's schedule from the port's scheduler on the CPU: the
+    same mix and pool on a 2-layer full-width copy of the config, served
+    digitally in float32 (no eos_id is set, so who is admitted, preempted,
+    expired and finished at which tick depends on the lengths alone)."""
+    cut = depth_config(cfg, 2)
+    params = model_lib.init_model(cut, seed=seed, device="cpu", dtype=torch.float32)
+    runner = ModelRunner(cut, params, max_seq=TRAFFIC_SEQ, device="cpu")
+    return traffic_run(runner, arrivals, TRAFFIC_POOL, TRAFFIC_DEADLINE), cut, params
+
+
+def traffic_phases(cfg, params, dev, seed):
+    """``serve_traffic_exact``, ``serve_traffic`` and ``farm`` on smollm-360m
+    at full width and depth from one ideal chip (programmed once; the farms'
+    replicas restore its store).  Returns {phase: launches}."""
+    torch.cuda.reset_peak_memory_stats()
+    ideal = CrossbarMode(enabled=True, strict=True)
+    arrivals = dataclasses.replace(SHORT_LONG_FULL, seed=seed).sample_arrivals(cfg.vocab_size)
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, params, max_batch=TRAFFIC_BATCH, max_seq=TRAFFIC_SEQ, crossbar=ideal, device=dev)
+    program_s = time.perf_counter() - t0
+    n_proj = sum(a.shape[0] if a.stacked else 1 for a in eng.programmed.by_name.values())
+    by_phase = {}
+
+    # serve_traffic_exact: the slot loop, then the scheduler on the same
+    # runner, every request submitted up front: identical batches
+    t_phase = time.perf_counter()
+    for _, cls, prompt in arrivals:
+        eng.submit(prompt, max_new_tokens=cls.max_new_tokens)
+    kvmm.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slot_tokens = drain(eng)
+    slot_s = time.perf_counter() - t0
+    slot_launches = dict(kvmm.LAUNCHES)
+    exact = traffic_run(eng.runner, arrivals)
+    line = dict(
+        phase="serve_traffic_exact", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        mix=SHORT_LONG_FULL.name, seed=seed, max_batch=TRAFFIC_BATCH, max_seq=TRAFFIC_SEQ,
+        program_seconds=program_s,
+        slot_loop=dict(seconds=slot_s, tokens_per_s=sum(map(len, slot_tokens)) / slot_s, launches=slot_launches),
+        tokens_equal_slot_loop=exact["tokens"] == slot_tokens, **public(exact),
+        phase_seconds=time.perf_counter() - t_phase,
+    )
+    emit(line)
+    require(line["tokens_equal_slot_loop"], "serve_traffic_exact: the scheduler's tokens differ from the slot loop's")
+    require(exact["completed"] == len(arrivals), f"serve_traffic_exact: {exact['completed']} requests finished")
+    require(
+        exact["captures"] == 1 and exact["graph_replays"] == exact["decode_ticks"],
+        f"serve_traffic_exact: {exact['captures']} captures, {exact['graph_replays']} replays for "
+        f"{exact['decode_ticks']} decode ticks",
+    )
+    require_kernels("serve_traffic_exact", exact, {"fast": n_proj})
+    by_phase["serve_traffic_exact"] = {k: v + slot_launches.get(k, 0) for k, v in exact["launches"].items()}
+
+    # serve_traffic: the Poisson mix with deadlines under a pool that
+    # preempts, twice on the card, and its schedule from the CPU
+    t_phase = time.perf_counter()
+    runs = [traffic_run(eng.runner, arrivals, TRAFFIC_POOL, TRAFFIC_DEADLINE) for _ in range(2)]
+    # a third run with ticks [TRAFFIC_WINDOW[1], + TRAFFIC_WINDOW[2]) in one
+    # profiled window (tick_profile_traffic); its step times are not kept
+    runs.append(traffic_run(eng.runner, arrivals, TRAFFIC_POOL, TRAFFIC_DEADLINE, window=TRAFFIC_WINDOW))
+    cpu, cpu_cfg, cpu_params = schedule_on_cpu(cfg, seed, arrivals)
+    run, prof = runs[0], runs[2]
+    line = dict(
+        phase="serve_traffic", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        mix=dict(name=SHORT_LONG_FULL.name, seed=seed, rate=SHORT_LONG_FULL.rate,
+                 classes=[dataclasses.asdict(c) for c in SHORT_LONG_FULL.classes], deadlines=TRAFFIC_DEADLINE),
+        **public(run),
+        repeat=dict(schedule_equal=runs[1]["schedule"] == run["schedule"], tokens_equal=runs[1]["tokens"] == run["tokens"],
+                    seconds=runs[1]["seconds"], tokens_per_s=runs[1]["tokens_per_s"], step_ms=runs[1]["step_ms"]),
+        profiled_run=dict(schedule_equal=prof["schedule"] == run["schedule"], tokens_equal=prof["tokens"] == run["tokens"],
+                          window_ticks=TRAFFIC_WINDOW[1:], window_prefills=prof["profile"]["prefills"]),
+        cpu_schedule=dict(n_layers=cpu_cfg.n_layers, equal=cpu["schedule"] == run["schedule"],
+                          preemptions=cpu["preemptions"], ticks=cpu["ticks"], seconds=cpu["seconds"]),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, phase_seconds=time.perf_counter() - t_phase,
+    )
+    emit(line)
+    require(run["preemptions"] >= 1 and run["resumes"] >= 1, f"serve_traffic: no preemption and resume ({run['preemptions']})")
+    require(run["first_page_in_equal"], "serve_traffic: the first resumed slot's prefix differs from its page-out snapshot")
+    for (rid, _, _, expired, n), (_, cls, _) in zip(run["schedule"], arrivals):
+        require(expired or n == cls.max_new_tokens, f"serve_traffic: request {rid} neither finished nor expired")
+    require(
+        line["cpu_schedule"]["equal"] and cpu["preemptions"] == run["preemptions"],
+        "serve_traffic: the card's schedule differs from the CPU's",
+    )
+    require(line["repeat"]["schedule_equal"] and line["repeat"]["tokens_equal"], "serve_traffic: the repeat run differs")
+    require(
+        line["profiled_run"]["schedule_equal"] and line["profiled_run"]["tokens_equal"],
+        "serve_traffic: the profiled run differs",
+    )
+    require(prof["profile"]["prefills"] > 0, "serve_traffic: no admission in the profiled window")
+    for r in runs:
+        require(
+            r["captures"] == 1 and r["graph_replays"] == r["decode_ticks"],
+            f"serve_traffic: {r['captures']} captures for one run (page-ins must keep the graph)",
+        )
+        require_kernels("serve_traffic", r, {"fast": n_proj})
+    by_phase["serve_traffic"] = {k: sum(r["launches"][k] for r in runs) for k in run["launches"]}
+    del runs, cpu
+
+    # farm: replicas restored from one store of this chip
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        eng.save_artifacts(d)
+        save_s = time.perf_counter() - t0
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_phase["farm"] = farm_phase(cfg, params, dev, arrivals, d, save_s, n_proj, cpu_cfg, cpu_params)
+    by_phase["farm_lifecycle"] = farm_lifecycle(cfg, params, dev, arrivals)
+    return by_phase
+
+
+def farm_phase(cfg, params, dev, arrivals, store, save_s, n_proj, cpu_cfg, cpu_params):
+    """Two replicas restored from ``store``: the mix submitted up front under
+    each policy (placements equal to the CPU farm's for the same
+    submissions); one replica against a bare engine that programs the chip
+    itself (tokens equal); the ticks to drain on 1 and on 2 replicas.  All at
+    ``FARM_BATCH`` slots a replica.  Returns the launches of the farms'
+    runs."""
+    ideal = CrossbarMode(enabled=True, strict=True)
+    t_phase = time.perf_counter()
+
+    def farm(n, policy="round_robin"):
+        t0 = time.perf_counter()
+        f = ChipFarm(cfg, params, n_replicas=n, policy=policy, max_batch=FARM_BATCH, max_seq=TRAFFIC_SEQ,
+                     crossbar=ideal, restore_artifacts=store, device=dev)
+        return f, time.perf_counter() - t0
+
+    runs, restore_s = {}, {}
+    for name, n, policy in (("round_robin", 2, "round_robin"), ("least_loaded", 2, "least_loaded"),
+                            ("one_replica", 1, "round_robin")):
+        f, restore_s[name] = farm(n, policy)
+        runs[name] = farm_run(f, arrivals)
+        require(all(c == 1 for c in runs[name]["captures"]), f"farm {name}: captures {runs[name]['captures']}")
+        require_kernels(f"farm {name}", runs[name], {"fast": n_proj})
+        del f
+        gc.collect()
+        torch.cuda.empty_cache()
+    bare = ServingEngine(cfg, params, max_batch=FARM_BATCH, max_seq=TRAFFIC_SEQ, crossbar=ideal, device=dev)
+    for _, cls, prompt in arrivals:
+        bare.submit(prompt, max_new_tokens=cls.max_new_tokens)
+    bare_tokens = drain(bare)
+    del bare
+    cpu_placements = {}
+    for policy in POLICIES:  # placement is decided at submission
+        cpu_farm = ChipFarm(cpu_cfg, cpu_params, n_replicas=2, policy=policy, max_batch=FARM_BATCH,
+                            max_seq=TRAFFIC_SEQ, device="cpu")
+        cpu_placements[policy] = [
+            cpu_farm.replica_of(cpu_farm.submit(p, max_new_tokens=c.max_new_tokens)) for _, c, p in arrivals
+        ]
+    speedup = runs["one_replica"]["ticks"] / runs["round_robin"]["ticks"]
+    line = dict(
+        phase="farm", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, max_batch=FARM_BATCH,
+        requests=len(arrivals), store_save_seconds=save_s, restore_seconds=restore_s,
+        runs={k: {x: y for x, y in r.items() if x not in ("tokens", "rids")} for k, r in runs.items()},
+        placements_equal_cpu={p: runs[p]["placements"] == cpu_placements[p] for p in POLICIES},
+        one_replica_tokens_equal_bare_engine=[runs["one_replica"]["tokens"][r] for r in runs["one_replica"]["rids"]]
+        == bare_tokens,
+        least_loaded_tokens_equal_round_robin=runs["least_loaded"]["tokens"] == runs["round_robin"]["tokens"],
+        tick_speedup_2_vs_1=speedup, tick_speedup_gate=FARM_SPEEDUP_MIN,
+        wall_tokens_per_s={k: r["wall_tokens_per_s"] for k, r in runs.items()},
+        wall_clock_note="both replicas share one card and their ticks run one after the other: "
+                        "wall-clock tokens/s is printed, not gated",
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, phase_seconds=time.perf_counter() - t_phase,
+    )
+    emit(line)
+    require(all(line["placements_equal_cpu"].values()), f"farm: placements differ from the CPU farm's {cpu_placements}")
+    require(line["one_replica_tokens_equal_bare_engine"], "farm: one replica's tokens differ from a bare engine's")
+    require(speedup > FARM_SPEEDUP_MIN, f"farm: 2 replicas drain in {speedup}x fewer ticks, gate {FARM_SPEEDUP_MIN}")
+    return {k: sum(r["launches"][k] for r in runs.values()) for k in runs["round_robin"]["launches"]}
+
+
+def farm_lifecycle(cfg, params, dev, arrivals):
+    """Two replicas of a 2-layer full-width copy on LIFECYCLE_DEVICE (the
+    noisy kernel), each programming the same chip, one slot each, both
+    serving: age replica 0 (its health worst above replica 1's), drain it,
+    submit (routed to replica 1), refresh replica 0 into a store slot once it
+    is idle (program, save, commit, hot swap), undrain, submit (routed to
+    replica 0).  Replica 0 captures exactly
+    once after the refresh; replica 1's decode graph is the same object
+    throughout; replica 0's tokens after the refresh equal a fresh restore's.
+    Returns the launches of the serving after the refresh."""
+    torch.cuda.reset_peak_memory_stats()
+    cut_cfg, cparams = cut_params(cfg, params, 2) if cfg.n_layers > 2 else (cfg, params)
+    mode = CrossbarMode(enabled=True, strict=True, device=LIFECYCLE_DEVICE)
+    short = [p for _, c, p in arrivals if c.name == "short"]
+    long_ = next(p for _, c, p in arrivals if c.name == "long")
+    kw = dict(max_batch=1, max_seq=TRAFFIC_SEQ, crossbar=mode, device=dev)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        farm = ChipFarm(cut_cfg, cparams, n_replicas=2, **kw)
+        r_a = farm.submit(short[0], max_new_tokens=8)
+        r_b = farm.submit(long_, max_new_tokens=32)
+        while not farm.is_idle(0):
+            farm.step()
+        g1 = farm.replicas[1].runner.decode_graph
+        require(g1 is not None and farm.replicas[0].runner.decode_graph is not None, "farm_lifecycle: no captures")
+        farm.replicas[0].age(LIFECYCLE_AGE_S)
+        health = [h.worst for h in farm.health()]
+        uptimes_aged = farm.uptimes()
+        farm.drain(0)
+        keep = farm.submit(short[1], max_new_tokens=8)
+        idle_before_refresh = farm.is_idle(0)
+        farm.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = farm.refresh(0, d)
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t0
+        dropped = farm.replicas[0].runner.decode_graph is None
+        farm.undrain(0)
+        back = farm.submit(short[2], max_new_tokens=8)
+        reset_crossbar_misses()
+        kvmm.reset_counters()
+        kscan.reset_counters()
+        g0_seen, g1_kept, replays1 = [], True, g1.replays
+        with timed_admissions(farm.replicas[0].runner) as a0, timed_admissions(farm.replicas[1].runner) as a1:
+            while not all(farm.is_idle(i) for i in range(2)):
+                farm.step()
+                g = farm.replicas[0].runner.decode_graph
+                if g is not None and (not g0_seen or g0_seen[-1] is not g):
+                    g0_seen.append(g)
+                g1_kept = g1_kept and farm.replicas[1].runner.decode_graph is g1
+        served = dict(
+            launches=dict(kvmm.LAUNCHES, **kscan.LAUNCHES), plain_calls=dict(kvmm.PLAIN_CALLS, **kscan.PLAIN_CALLS),
+            misses=len(crossbar_misses()),
+        )
+        # forwards after the refresh: both replicas' admissions and replays
+        forwards = a0.count + a1.count + (g0_seen[-1].replays if g0_seen else 0) + g1.replays - replays1
+        res = {r.rid: r for r in farm.run_until_done(max_ticks=0)}
+        fresh = ServingEngine(cut_cfg, cparams, restore_artifacts=d, **kw)
+        fresh.submit(short[2], max_new_tokens=8)
+        fresh_tokens = drain(fresh)[0]
+        active = active_slot(d)
+    n_proj = 6 * cut_cfg.n_layers + 1
+    line = dict(
+        phase="farm_lifecycle", arch=cfg.name, n_layers=cut_cfg.n_layers, d_model=cfg.d_model,
+        device=dataclasses.asdict(LIFECYCLE_DEVICE), age_s=LIFECYCLE_AGE_S, health_worst_after_aging=health,
+        uptimes_after_aging=uptimes_aged, uptimes_after_refresh=farm.uptimes(), keep_routed_to=farm.replica_of(keep),
+        back_routed_to=farm.replica_of(back), idle_before_refresh=idle_before_refresh, refresh_slot=slot,
+        active_slot=active, refresh_seconds=refresh_s, refresh_dropped_graph=dropped,
+        replica0_captures_after_refresh=len(g0_seen), replica1_graph_kept=g1_kept,
+        tokens_equal_fresh_restore=res[back].generated == fresh_tokens,
+        finished=[res[r].done for r in (r_a, r_b, keep, back)], **served,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, phase_seconds=time.perf_counter() - t_phase,
+    )
+    emit(line)
+    require(health[0] > health[1] and uptimes_aged[0] > 0 == uptimes_aged[1], f"farm_lifecycle: aging {line}")
+    require(line["keep_routed_to"] == 1 and line["back_routed_to"] == 0, "farm_lifecycle: routing around the drain")
+    require(idle_before_refresh and dropped and slot == active, "farm_lifecycle: the refresh")
+    require(line["uptimes_after_refresh"][0] == 0.0, "farm_lifecycle: the refreshed replica has aged")
+    require(len(g0_seen) == 1 and g1_kept, f"farm_lifecycle: captures {len(g0_seen)}, replica 1 kept {g1_kept}")
+    require(line["tokens_equal_fresh_restore"], "farm_lifecycle: the refreshed replica's tokens differ from a fresh restore's")
+    require(all(line["finished"]), "farm_lifecycle: a request did not finish")
+    require_kernels("farm_lifecycle", served, {"noisy": n_proj}, forwards)
+    return served["launches"]
+
+
+def serve_traffic_xlstm(cfg, params, dev, seed):
+    """xlstm-350m (a pure-recurrent pool) at full width and depth from an
+    ideal chip: the mix's requests submitted up front, through the slot loop
+    and then the scheduler on its runner (tokens equal; each request's first
+    token sampled from its prefill and streamed); the scan kernel on every
+    sLSTM layer and the fast kernel on the head of every forward; every
+    request holds one block; one live slot paged out and into another free
+    slot leaves every state leaf ``torch.equal``.  Returns the launches of
+    both runs."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    arrivals = dataclasses.replace(SHORT_LONG_FULL, seed=seed).sample_arrivals(cfg.vocab_size)
+    eng = ServingEngine(cfg, params, max_batch=TRAFFIC_BATCH, max_seq=TRAFFIC_SEQ,
+                        crossbar=CrossbarMode(enabled=True, strict=True), device=dev)
+    n_scan = sum(spec.repeats * spec.kinds.count("slstm") for spec in cfg.stages)
+    for _, cls, prompt in arrivals:
+        eng.submit(prompt, max_new_tokens=cls.max_new_tokens)
+    kvmm.reset_counters()
+    kscan.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slot_tokens = drain(eng)
+    slot_s = time.perf_counter() - t0
+    slot_launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES)
+    run = traffic_run(eng.runner, arrivals)
+
+    # one live slot paged out and into another free slot, by hand
+    sched = ContinuousBatchingScheduler(eng.runner, max_batch=TRAFFIC_BATCH)
+    kv = sched.kv
+    rids = [sched.submit(p, max_new_tokens=c.max_new_tokens) for _, c, p in arrivals[:2]]
+    for _ in range(3):
+        sched.step()
+    tables = [kv.table(r) for r in rids]
+    slot, free = 0, sched.slots.index(None)
+    want = [t.clone() for t in slot_state(kv.cache, cfg, slot, 0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kv.page_out(rids[0], slot, int(sched.pos[slot]), int(sched.last_tok[slot]))
+    out_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kv.page_in(rids[0], free)
+    torch.cuda.synchronize()
+    in_s = time.perf_counter() - t0
+    state_equal = all(torch.equal(a, b) for a, b in zip(want, slot_state(kv.cache, cfg, free, 0)))
+    line = dict(
+        phase="serve_traffic_xlstm", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        slstm_layers=n_scan, mix=SHORT_LONG_FULL.name, seed=seed,
+        slot_loop=dict(seconds=slot_s, tokens_per_s=sum(map(len, slot_tokens)) / slot_s, launches=slot_launches),
+        tokens_equal_slot_loop=run["tokens"] == slot_tokens, **public(run),
+        blocks_held=[len(t) for t in tables], blocks_for_max_seq=kv.blocks_for(TRAFFIC_SEQ),
+        page_round_trip=dict(state_equal=state_equal, bytes=sum(t.numel() * t.element_size() for t in want),
+                             page_out_ms=1e3 * out_s, page_in_ms=1e3 * in_s),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, phase_seconds=time.perf_counter() - t_phase,
+    )
+    emit(line)
+    require(line["tokens_equal_slot_loop"], "serve_traffic_xlstm: the scheduler's tokens differ from the slot loop's")
+    require(
+        run["completed"] == len(arrivals) and run["new_tokens"] == run["decoded_tokens"] + run["prefills"],
+        f"serve_traffic_xlstm: {run['new_tokens']} tokens, {run['decoded_tokens']} decoded, {run['prefills']} "
+        "prefills: the first token of each request comes from its prefill",
+    )
+    require(
+        run["captures"] == 1 and run["graph_replays"] == run["decode_ticks"],
+        f"serve_traffic_xlstm: {run['captures']} captures, {run['graph_replays']} replays",
+    )
+    require_kernels("serve_traffic_xlstm", run, {"fast": 1, "slstm_scan": n_scan})
+    require(line["blocks_held"] == [1, 1] and line["blocks_for_max_seq"] == 1, "serve_traffic_xlstm: blocks")
+    require(state_equal, "serve_traffic_xlstm: the paged state differs")
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: v + slot_launches.get(k, 0) for k, v in run["launches"].items()}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1686,6 +2384,13 @@ def main() -> int:
     emit(line)
     replayed_tick_checks("ideal", eng, cfg, args.seed, {"fast_kernel": line["projections"]})
     del eng
+    torch.cuda.empty_cache()
+
+    # the traffic tier on the same chip: the scheduler against the slot
+    # loop, the Poisson mix with deadlines and preemption (one window of it
+    # profiled), the farm and a replica's refresh
+    launches_traffic = traffic_phases(cfg, params, dev, args.seed)
+    gc.collect()
     torch.cuda.empty_cache()
 
     # the paper datapath: fast=False artifacts under the default adaptive ADC
@@ -1792,7 +2497,9 @@ def main() -> int:
         )
     emit(line)
     replayed_tick_checks("xlstm", eng, xcfg, args.seed, {SCAN_KERNEL: line["slstm_layers"], "fast_kernel": 1})
-    del eng, xparams
+    del eng
+    launches_traffic["serve_traffic_xlstm"] = serve_traffic_xlstm(xcfg, xparams, dev, args.seed)
+    del xparams
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1800,7 +2507,7 @@ def main() -> int:
         serve_ideal=launches_ideal, serve_ideal_paper_datapath=launches_planes,
         serve_noisy=launches_noisy, serve_planned=launches_planned,
         serve_planned_repaired=launches_repaired, repair_recovery=launches_recovery, lifecycle=launches_lifecycle,
-        serve_xlstm=launches_xlstm,
+        serve_xlstm=launches_xlstm, **launches_traffic,
     )
     # gemma2-9b, minitron-4b and starcoder2-3b at full width from ideal chips
     for i, (phase, arch) in enumerate(DENSE_SERVES):

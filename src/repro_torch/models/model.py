@@ -6,6 +6,7 @@ Entry points:
   * ``init_model(cfg, seed, device, dtype)`` -> params (nested dicts)
   * ``forward(params, cfg, tokens)`` -> logits (B, S, V)
   * ``init_cache(cfg, B, S, dtype, device)`` -> cache
+  * ``cache_axes(cfg)`` -> the cache's logical axes, leaf by leaf
   * ``prefill(params, cfg, tokens, cache)`` -> (last_logits, cache)
   * ``decode_step(params, cfg, tok, pos, cache)`` -> (logits, cache)
 
@@ -163,6 +164,39 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, dev
             }
         stages.append(entry)
     return stages
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical-axis tree parallel to ``init_cache``: cache_batch, cache_seq
+    (``serving.kvcache`` pages along it), kv_heads / heads.  Refuses what
+    ``init_cache`` refuses (multi-head latent attention, mamba, MoE, an
+    embedding front end)."""
+    _require_ported_config(cfg)
+
+    def block_axes(kind: str):
+        _require_ported(kind)
+        if kind == "mlstm":
+            return {
+                "C": ("layers", "cache_batch", "heads", None, None),
+                "n": ("layers", "cache_batch", "heads", None),
+            }
+        if kind == "slstm":
+            return {
+                "c": ("layers", "cache_batch", "heads", None),
+                "n": ("layers", "cache_batch", "heads", None),
+                "h": ("layers", "cache_batch", "heads", None),
+            }
+        if cfg.kv_lora_rank:
+            raise NotImplementedError("multi-head latent attention is not ported yet")
+        return {
+            "k": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
+            "v": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
+        }
+
+    return [
+        {f"b{i}": block_axes(kind) for i, kind in enumerate(spec.kinds)}
+        for spec in cfg.stages
+    ]
 
 
 # ---------------------------------------------------------------------------

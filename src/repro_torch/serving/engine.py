@@ -12,7 +12,10 @@ top: a fixed pool of ``max_batch`` cache slots; a pending request is
 prefilled alone (an attention model's prompt zero-padded to a bucket, a
 recurrent model's at its exact length) and its cache copied into a free slot;
 one ``decode_step`` advances *all* slots each tick with per-slot positions;
-finished slots are freed and refilled.
+finished slots are freed and refilled.  The traffic tier drives the same
+runner: ``serving.scheduler.ContinuousBatchingScheduler`` (deadlines, a block
+pool, exact preemption) and ``serving.farm.ChipFarm`` (replicas of this
+engine behind one router).
 
 The decode tick is compiled as the reference jits it: on the card the pool's
 ``decode_step`` is captured once as a CUDA graph and replayed every tick
@@ -57,9 +60,17 @@ class Request:
     # allow truncating a prompt longer than max_seq to its first max_seq
     # tokens; without it an over-length prompt is refused at submit()
     truncate: bool = False
+    # traffic tier (serving.scheduler): absolute tick by which the request
+    # must finish, else it is evicted with expired=True; None = no deadline
+    deadline: Optional[int] = None
+    # streaming: called as on_token(req, tok) for every generated token,
+    # including the prefill-sampled first token of recurrent archs
     on_token: Optional[Callable[["Request", int], None]] = None
+    arrival: int = 0  # scheduler tick at submit time
+    finish: Optional[int] = None  # scheduler tick after the finishing step
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    expired: bool = False
 
 
 def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
@@ -394,6 +405,16 @@ class ModelRunner:
             return self.max_seq
         return S
 
+    def prefill_len(self, S: int) -> int:
+        """Length of the prefill that admits a prompt of ``S`` tokens (after
+        ``check_prompt``).  Recurrent state (ssm / hybrid families) would
+        absorb padding tokens, so those prefill the exact length; attention
+        caches tolerate padding (masked by position): a zero-padded bucket,
+        then an idempotent re-issue of token S-1."""
+        if self.cfg.family in ("ssm", "hybrid"):
+            return S
+        return min(_bucket(S), self.max_seq)
+
     def admit_slot(self, cache, slot: int, req: Request):
         """Prefill one request and copy its cache into slot ``slot`` (in
         place).  Returns ``(cache, pos, last_tok, first_tok)``; attention
@@ -401,13 +422,8 @@ class ModelRunner:
         ``first_tok`` is None; recurrent models sample the first token from
         the prefill logits."""
         S = self.check_prompt(req.prompt, req.truncate)
-        # recurrent state (ssm / hybrid families) would absorb padding tokens,
-        # so those prefill the exact length; attention caches tolerate padding
-        # (masked by position): prefill a zero-padded bucket, then an
-        # idempotent re-issue of token S-1
         recurrent = self.cfg.family in ("ssm", "hybrid")
-        bucket = S if recurrent else min(_bucket(S), self.max_seq)
-        prompt = np.zeros((1, bucket), np.int64)
+        prompt = np.zeros((1, self.prefill_len(S)), np.int64)
         prompt[0, :S] = np.asarray(req.prompt)[:S]
         small_cache = self.init_cache(1)
         tokens = torch.from_numpy(prompt).to(self.device)
@@ -493,6 +509,8 @@ class ServingEngine:
         # it frees the slot, so a request admitted and finished within one
         # step() (max_new_tokens=1) cannot vanish from run_until_done()
         self._completed: Dict[int, Request] = {}
+        # rid_start: disjoint rid ranges per replica when a ChipFarm fans one
+        # request stream across several engines (serving.farm)
         self._rid = itertools.count(rid_start)
 
     # -- delegation: the model half lives on the runner -----------------
@@ -507,6 +525,14 @@ class ServingEngine:
     @property
     def max_seq(self) -> int:
         return self.runner.max_seq
+
+    @property
+    def temperature(self) -> float:
+        return self.runner.temperature
+
+    @property
+    def plan(self) -> Optional[ChipPlan]:
+        return self.runner.plan
 
     @property
     def crossbar(self) -> Optional[CrossbarMode]:

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import time
 import weakref
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -61,9 +61,19 @@ def credit_launches(captured: List[Dict[str, int]]) -> None:
             counter[k] += n
 
 
+def named_leaves(tree) -> Iterator[Tuple[str, object]]:
+    """(joined path, leaf) of a cache-shaped tree — a list of stages of
+    ``{b<i>: {leaf name: x}}`` — in a fixed order (stage, block, leaf name);
+    the path is the reference's joined pytree path (``"0/b0/k"``)."""
+    for si, stage in enumerate(tree):
+        for b, entry in stage.items():
+            for n, x in entry.items():
+                yield f"{si}/{b}/{n}", x
+
+
 def cache_leaves(cache) -> List[torch.Tensor]:
-    """The cache's tensors in a fixed order (stage, block, leaf name)."""
-    return [t for stage in cache for entry in stage.values() for t in entry.values()]
+    """The cache's tensors in ``named_leaves`` order."""
+    return [t for _, t in named_leaves(cache)]
 
 
 def cache_key(cache) -> Tuple:

@@ -35,6 +35,7 @@ def test_port_has_the_expected_modules():
         "core/karatsuba.py", "core/strassen.py", "core/planner.py", "core/workloads.py",
         "core/arch.py", "core/mapper.py", "core/energy.py", "analysis/store.py",
         "device/repair.py", "device/program.py", "device/health.py",
+        "serving/kvcache.py", "serving/scheduler.py", "serving/farm.py",
     ):
         assert want in names, want
     for src in ("crossbar_vmm.cu", "slstm_scan.cu"):
