@@ -50,12 +50,14 @@ Phases (one JSON line each; any failure is an uncaught exception):
                repaired 960 x 5120 slab programmed on the card and on the CPU
                from the same fields, plan and cells ``torch.equal``
   lifecycle    smollm-360m at full width and depth on LIFECYCLE_DEVICE, mid
-               run: age (the captured tick dropped and captured again, 3
-               replayed ticks bit-equal to eager on the aged chip, the health
-               monitor's worst layer up), compensate (worst down, >= 0.5 of
-               the probe MSE recovered), refresh in memory (the fresh program;
-               the run's tokens those of an uninterrupted run); then
-               ``refresh(directory)`` twice on a 2-layer copy (slots A, B)
+               run: age (the captured tick and prefills dropped and captured
+               again, 3 replayed ticks bit-equal to eager on the aged chip,
+               the next admission's prefill ``torch.equal`` to an eager one,
+               the health monitor's worst layer up), compensate (worst down,
+               >= 0.5 of the probe MSE recovered), refresh in memory (the
+               fresh program; the run's tokens those of an uninterrupted
+               run); then ``refresh(directory)`` twice on a 2-layer copy
+               (slots A, B), each dropping the prefill graphs
   serve_xlstm  xlstm-350m at full width and depth (24 layers, mLSTM / sLSTM)
                from an ideal programmed chip: the tied head on the fast
                kernel, every sLSTM recurrence on the scan kernel (12 launches
@@ -72,9 +74,15 @@ Phases (one JSON line each; any failure is an uncaught exception):
                would be 37 GB of npz)
                Every serve phase runs its decode ticks by replaying the
                pool's captured CUDA graph (``graph_replays`` = ``decode_ticks``,
-               ``capture_seconds``); prefills stay eager, and
-               ``prefill_seconds`` times them (each admission: the prefill and
-               the copy into the slot) apart from the ticks.
+               ``capture_seconds``) and an attention model's prefills by
+               replaying its bucket's captured graph (``prefill_graphs``: the
+               buckets captured, ``prefill_capture_seconds`` and
+               ``prefill_pool_bytes`` of each, ``prefill_replays`` = the
+               admissions); ``prefill_seconds`` times the admissions that
+               replayed (each: the prefill and the copy into the slot) apart
+               from the ticks, ``capturing_admission_seconds`` those that
+               captured.  xlstm's prefills, at each prompt's exact length,
+               stay eager.
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
                (ideal, paper, noisy, planned, xlstm, gemma2, minitron,
                starcoder2), and 24 ticks of serve_traffic's mix (traffic):
@@ -86,35 +94,53 @@ Phases (one JSON line each; any failure is an uncaught exception):
                eagerly on a clone of the cache: logits bit-equal every tick,
                caches after the last; both tick medians and a replay's
                device span
+  prefill_vs_eager_*  (ideal, paper, noisy, planned, gemma2) admissions at
+               buckets 32, 64, 128 and 256 (max_seq 256) through the
+               runner's prefill graph and, alternating, eagerly (a fresh
+               one-slot cache, the prefill, the copy into a slot): logits,
+               the one-slot cache and the slot ``torch.equal``, for a full
+               bucket's prompt and then the bucket's shortest, twice; both
+               admission medians, a replay's device span, each capture's
+               seconds and pool bytes
   The traffic tier, after tick_profile_ideal on the same chip (xlstm's after
   tick_profile_xlstm):
   serve_traffic_exact  smollm-360m at full width and depth from an ideal
                chip (max_batch 4, max_seq 256): the short_long_full mix's 32
                requests submitted up front through the slot-loop engine, then
                through ``ContinuousBatchingScheduler`` on its runner (default
-               pool): tokens equal, one capture and a replay a decode tick,
-               the fast kernel on every projection of every prefill and tick
+               pool; the scheduler first, so its first admission of each
+               bucket captures), then the slot-loop engine: tokens equal, one
+               decode capture and a replay a decode tick, a prefill replay an
+               admission, the fast kernel on every projection of every
+               prefill and tick
   serve_traffic  the same chip under the seeded Poisson mix (short: 24-token
                prompts, 8 new tokens, a 16-tick deadline; long: 192 tokens, 32
                new, no deadline; 0.5 arrivals a tick) on a 40-block pool of 16
                tokens: a preemption and a resume at least, the first resumed
                prefix ``torch.equal`` to its page-out snapshot, the schedule
                equal to the port's on the CPU (2 layers, digital), a second
-               run identical, one capture a run; tokens/s, latency in ticks,
-               step ms with and without an admission, admission ms by bucket,
-               page-out / page-in ms and bytes; a third run, identical too,
-               profiles ticks 52-75 (tick_profile_traffic)
+               run identical, one decode capture a run, a prefill replay an
+               admission; tokens/s, latency in ticks, step ms by kind (decode
+               only, paging, an admission, an admission that captured its
+               bucket's prefill), admission ms by bucket, page-out / page-in
+               ms and bytes; a third run, identical too, profiles ticks 52-75
+               (tick_profile_traffic; run anew, up to 3 runs, where the
+               profiler dropped records of our kernels)
   farm         ``ChipFarm`` replicas restored from one store of that chip
                (max_batch 2): the mix under round_robin and least_loaded
                (placements equal to the CPU farm's), one replica against a bare
                engine (tokens equal), ticks to drain on 1 and 2 replicas (gate
-               > 1.3x); wall-clock tokens/s printed, not gated: the replicas
-               share one card and step one after the other
+               > 1.3x), a decode capture and a prefill capture a bucket on
+               each replica; wall-clock tokens/s printed, not gated: the
+               replicas share one card and step one after the other
   farm_lifecycle  two replicas of a 2-layer full-width copy on
                LIFECYCLE_DEVICE (noisy kernel): replica 0 aged, drained,
                refreshed through the store's slots and undrained while replica
-               1 serves: one recapture on replica 0, replica 1's decode graph
-               the same object throughout, replica 0's tokens a fresh
+               1 serves: each swap drops replica 0's decode and prefill graphs
+               and no other; one recapture of the tick on replica 0, whose
+               next admission recaptures its bucket's prefill, ``torch.equal``
+               to an eager one on the new chip; replica 1's decode and prefill
+               graphs the same objects throughout; replica 0's tokens a fresh
                restore's
   serve_traffic_xlstm  xlstm-350m through the scheduler against its slot
                loop (tokens equal, the first token of each request from its
@@ -165,7 +191,7 @@ from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_plain  # 
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.layers import CrossbarMode, crossbar_misses, crossbar_mode, reset_crossbar_misses  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
-    BlockCacheConfig, ChipFarm, ContinuousBatchingScheduler, ModelRunner, ServingEngine,
+    BlockCacheConfig, ChipFarm, ContinuousBatchingScheduler, ModelRunner, Request, ServingEngine,
 )
 from repro_torch.serving.farm import POLICIES  # noqa: E402
 from repro_torch.serving.graphs import cache_leaves, clone_cache, named_leaves  # noqa: E402
@@ -196,6 +222,11 @@ TRAFFIC_DEADLINE = {"short": 16, "long": None}
 # serve_traffic's profiled window: (phase, first tick, ticks); at seed 0 it
 # holds 6 admissions and a page move
 TRAFFIC_WINDOW = ("tick_profile_traffic", 52, 24)
+# the profiled traffic run is run again, up to this many runs in all, when
+# the profiler dropped device records of our kernels in its window (it saw
+# fewer than were credited, none more): torch.profiler has dropped part or
+# all of one replay's records from a window of this size (PERF.md §7)
+TRAFFIC_PROFILE_RUNS = 3
 # the reference's gate on a farm's ticks to drain, 1 replica against 2
 # (benchmarks/serving_traffic.py), both at max_batch FARM_BATCH
 FARM_SPEEDUP_MIN, FARM_BATCH = 1.3, 2
@@ -206,7 +237,8 @@ XLSTM_HEAD = (1024, 50304)  # the tied head of xlstm-350m, K x N
 # N, each projection shape they add to the fast kernel's main path (wq, wk /
 # wv, wo, wi, the FFN's wo; a shape another config already has is listed
 # once) and their heads, each held at M = 4 (a decode tick) and M = 32 (a
-# prefill bucket), gemma2's 256000-wide head at M = 4 only
+# prefill bucket), gemma2's 256000-wide head at M = 4 only; each head also
+# at M = 1 (a prefill's last position), untimed
 DENSE_SERVES = (("serve_gemma2", "gemma2-9b"), ("serve_minitron", "minitron-4b"), ("serve_starcoder2", "starcoder2-3b"))
 DENSE_SHAPES = {
     "gemma2-9b": [(3584, 4096), (3584, 2048), (4096, 3584), (3584, 28672), (14336, 3584)],
@@ -214,6 +246,9 @@ DENSE_SHAPES = {
     "starcoder2-3b": [(3072, 256), (3072, 12288), (12288, 3072)],
 }
 DENSE_HEADS = {"gemma2-9b": (3584, 256000), "minitron-4b": (3072, 256000), "starcoder2-3b": (3072, 49152)}
+# the prefill buckets past 32 that prefill_vs_eager_gemma2 runs gemma2's
+# projections at
+DENSE_BUCKETS = (64, 128, 256)
 # K of the deepest projections of gemma2 (its attention wo, its FFN wo),
 # where the paper and noisy kernels are held to their plain versions at N =
 # 3584, M = 4 (off this slice's served path: untimed)
@@ -517,14 +552,26 @@ def kernels_phase(dev, quick: bool):
                     kind, f"{tag}/main", M, K, N, layer_scaled_spec(base, K), cfg,
                     sparse=False, skip=True, seed=seed, dev=dev, timed=main,
                 ))
-        if main and kind != "planes" and not quick:
-            # M = 256: the prefill bucket of the traffic mix's long prompts,
-            # on the fast kernel (the ideal chip) and the noisy one (the
-            # farm's lifecycle chip); seeds of their own: the other cases
-            # keep theirs
-            for K, N in MAIN_SHAPES:
+        if main and not quick:
+            # M = 256 and 128: the prefill buckets past 64 (the traffic mix's
+            # long prompts at 256, prefill_vs_eager_* at both), on each
+            # kernel of a served chip; seeds of their own: the other cases
+            # keep theirs.  A prefill's head runs on its last position only
+            # (M = 1, the case after the 256 ones): the head at M = 256 is
+            # timed on the fast and noisy kernels but is off the path
+            for K, N in (MAIN_SHAPES[:-1] if kind == "planes" else MAIN_SHAPES):
                 cases.append(run_case(
                     kind, f"{tag}/main", 256, K, N, layer_scaled_spec(base, K), cfg,
+                    sparse=False, skip=True, seed=9000 + len(cases), dev=dev, timed=True,
+                ))
+            K, N = MAIN_SHAPES[-1]
+            cases.append(run_case(
+                kind, f"{tag}/prefill_head", 1, K, N, layer_scaled_spec(base, K), cfg,
+                sparse=False, skip=True, seed=9000 + len(cases), dev=dev, timed=True,
+            ))
+            for K, N in MAIN_SHAPES[:-1]:
+                cases.append(run_case(
+                    kind, f"{tag}/main", 128, K, N, layer_scaled_spec(base, K), cfg,
                     sparse=False, skip=True, seed=9000 + len(cases), dev=dev, timed=True,
                 ))
         if kind == "fast" and tag == "ideal":
@@ -537,13 +584,22 @@ def kernels_phase(dev, quick: bool):
                     cfg, sparse=False, skip=True, seed=seed, dev=dev, timed=True,
                 ))
             # the dense configs' projections and heads (seeds of their own:
-            # the other cases keep theirs)
+            # the other cases keep theirs); gemma2's projections also at
+            # every bucket prefill_vs_eager_gemma2 runs, and each head at M =
+            # 1, a prefill's last position (untimed)
             for arch, shapes in DENSE_SHAPES.items():
                 for K, N in (shapes[:1] if quick else shapes + [DENSE_HEADS[arch]]):
-                    for M in ((4,) if quick or (K, N) == DENSE_HEADS["gemma2-9b"] else (4, 32)):
+                    head = (K, N) == DENSE_HEADS[arch]
+                    if quick:
+                        rows = (4,)
+                    elif head:
+                        rows = (4, 1) if arch == "gemma2-9b" else (4, 32, 1)
+                    else:
+                        rows = (4, 32) + (DENSE_BUCKETS if arch == "gemma2-9b" else ())
+                    for M in rows:
                         cases.append(run_case(
                             kind, f"{tag}/{arch}", M, K, N, layer_scaled_spec(base, K), cfg,
-                            sparse=False, skip=True, seed=7000 + len(cases), dev=dev, timed=True,
+                            sparse=False, skip=True, seed=7000 + len(cases), dev=dev, timed=M > 1,
                         ))
                         torch.cuda.empty_cache()
             seed = fast_edge_cases(cases, base, seed, dev, quick)
@@ -931,28 +987,38 @@ def make_requests(cfg, seed, n=6):
 
 
 class timed_admissions:
-    """Within the block, every admission of ``runner`` (its eager prefill and
-    the copy into the slot) is timed, device synchronised on both sides:
-    ``seconds[length]`` afterwards, by the length of the prefill that ran
-    (``runner.prefill_len``: a bucket; a recurrent prompt's exact length)."""
+    """Within the block, every admission of ``runner`` (its prefill and the
+    copy into the slot) is timed, device synchronised on both sides, by the
+    length of the prefill that ran (``runner.prefill_len``: a bucket; a
+    recurrent prompt's exact length): ``seconds[length]`` afterwards for
+    the admissions that replayed their bucket's prefill graph (or, on a
+    recurrent model, ran the prefill eagerly), ``capturing[length]`` for
+    those that captured it first (warm-up, capture, then the replay): those
+    after which the runner holds one prefill graph more."""
 
     def __init__(self, runner):
-        self.runner, self.seconds = runner, {}
+        self.runner, self.seconds, self.capturing = runner, {}, {}
 
     @property
     def count(self) -> int:
-        return sum(len(v) for v in self.seconds.values())
+        return self.captures + sum(len(v) for v in self.seconds.values())
+
+    @property
+    def captures(self) -> int:
+        return sum(len(v) for v in self.capturing.values())
 
     def __enter__(self):
         runner = self.runner
 
         def admit(cache, slot, req):
+            length = runner.prefill_len(runner.check_prompt(req.prompt, req.truncate))
+            graphs = len(runner.prefill_graphs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = type(runner).admit_slot(runner, cache, slot, req)
             torch.cuda.synchronize()
-            length = runner.prefill_len(runner.check_prompt(req.prompt, req.truncate))
-            self.seconds.setdefault(length, []).append(time.perf_counter() - t0)
+            times = self.capturing if len(runner.prefill_graphs) > graphs else self.seconds
+            times.setdefault(length, []).append(time.perf_counter() - t0)
             return out
 
         runner.admit_slot = admit
@@ -964,8 +1030,8 @@ class timed_admissions:
 
 def drive(eng, prompts, max_new):
     """Submit, then step until drained; returns (requests, prefills, ticks,
-    seconds, pure decode-tick seconds, tokens appended by decode ticks,
-    seconds of the admissions: each request's eager prefill and the copy of
+    seconds, pure decode-tick seconds, tokens appended by decode ticks, the
+    ``timed_admissions`` of the run: each request's prefill and the copy of
     its cache into its slot, timed apart from the ticks)."""
     for p in prompts:
         eng.submit(p, max_new_tokens=max_new)
@@ -985,8 +1051,30 @@ def drive(eng, prompts, max_new):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     reqs = eng.run_until_done(max_ticks=0)  # the completion ledger
-    admit_s = sum(sum(v) for v in adm.seconds.values())
-    return reqs, len(prompts), ticks, seconds, tick_s, decoded, admit_s
+    return reqs, len(prompts), ticks, seconds, tick_s, decoded, adm
+
+
+def prefill_fields(runner, adm, attention_admissions):
+    """A run's prefill numbers for its line: the prefill graphs the runner
+    holds (each bucket's capture seconds and pool bytes), their replays,
+    held equal to ``attention_admissions`` (graphs built in the run, every
+    one replayed once an admission), and the admissions' seconds (``adm``,
+    a ``timed_admissions``), replaying and capturing apart."""
+    graphs = runner.prefill_graphs
+    replays = sum(g.replays for g in graphs.values())
+    require(
+        replays == attention_admissions and all(g.graph is not None for g in graphs.values()),
+        f"{replays} prefill replays for {attention_admissions} attention admissions",
+    )
+    replayed = [x for v in adm.seconds.values() for x in v]
+    return dict(
+        prefill_graphs=sorted(graphs), prefill_replays=replays,
+        prefill_capture_seconds={str(b): g.capture_seconds for b, g in sorted(graphs.items())},
+        prefill_pool_bytes={str(b): g.pool_bytes for b, g in sorted(graphs.items())},
+        prefill_seconds=sum(replayed), prefill_admissions=len(replayed),
+        prefill_ms_median=1e3 * statistics.median(replayed) if replayed else None,
+        capturing_admission_seconds={str(b): v for b, v in sorted(adm.capturing.items())},
+    )
 
 
 def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check, plan=None):
@@ -1006,7 +1094,7 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check,
     kvmm.reset_counters()  # counts are read for the serving run alone
     kscan.reset_counters()
     tprog.reset_planned_calls()
-    reqs, prefills, ticks, seconds, tick_s, decoded, prefill_s = drive(eng, prompts, max_new=16)
+    reqs, prefills, ticks, seconds, tick_s, decoded, adm = drive(eng, prompts, max_new=16)
     launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES, **tprog.PLANNED_CALLS)
     graph = eng.runner.decode_graph
     require(
@@ -1048,9 +1136,9 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check,
         slstm_layers=n_scan, first_token_at_prefill=recurrent,
         launches=launches, plain_calls=plain_calls, misses=0,
         program_seconds=program_s, serve_seconds=seconds, tokens_per_s=n_tok / seconds,
-        prefill_seconds=prefill_s,
+        **prefill_fields(eng.runner, adm, 0 if recurrent else prefills),
         decode_tick_ms_median=(1e3 * statistics.median(tick_s) if tick_s else None),
-        graph_replays=graph.replays, capture_seconds=graph.capture_seconds,
+        graph_replays=graph.replays, capture_seconds=graph.capture_seconds, capture_pool_bytes=graph.pool_bytes,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, tokens=tokens,
     )
     if restore_check:
@@ -1167,7 +1255,9 @@ def serve_dense(phase, arch, dev, seed, quick):
     )
     del cut_eng, cut_chip, cut_params
     emit(line)
-    replayed_tick_checks(phase.replace("serve_", ""), eng, cfg, seed, {"fast_kernel": line["projections"]})
+    replayed_tick_checks(
+        phase.replace("serve_", ""), eng, cfg, seed, {"fast_kernel": line["projections"]}, prefill=arch == "gemma2-9b",
+    )
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1190,6 +1280,15 @@ def tick_profile(phase, eng, prompts, ticks=3):
     return line
 
 
+class RecordsDropped(RuntimeError):
+    """The profiler saw fewer calls of our kernels in a window than the
+    window credited, and no kernel more: it dropped device records."""
+
+    def __init__(self, phase, short):
+        super().__init__(f"chip_smoke check failed: {phase}: the profiler dropped records, calls a tick short {short}")
+        self.short = short
+
+
 def profile_window(phase, run, ticks):
     """``run()`` (``ticks`` steps of a serve loop; it may return a dict of
     fields for the line) under ``torch.profiler``
@@ -1206,7 +1305,10 @@ def profile_window(phase, run, ticks):
     first step.  So each window opens with ``PROFILE_PROLOGUE`` spin kernels
     and a synchronise: the loss falls on them, and the line reports how many
     were lost (``prologue_records_lost``).  A window that saw none of them
-    may have lost records of its own, and fails."""
+    may have lost records of its own, and fails.  A window in which the
+    profiler saw fewer calls of some kernel than were credited, and of none
+    more, raises ``RecordsDropped`` (its line is emitted as
+    ``<phase>_dropped``); any other disagreement fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1256,6 +1358,10 @@ def profile_window(phase, run, ticks):
             credited_per_tick=n / ticks,
         ))
     line["profiler_sees_graph_kernels"] = all(k["calls_per_tick"] > 0 for k in line["kernels"])
+    short = {k["name"]: k["credited_per_tick"] - k["calls_per_tick"] for k in line["kernels"]}
+    if any(v > 0 for v in short.values()) and all(v >= 0 for v in short.values()):
+        emit(dict(line, phase=f"{phase}_dropped"))
+        raise RecordsDropped(phase, short)
     emit(line)
     require(
         prologue_seen > 0,
@@ -1271,13 +1377,14 @@ def profile_window(phase, run, ticks):
     return line
 
 
-def replayed_tick_checks(path, eng, cfg, seed, per_tick, planned_per_tick=None):
+def replayed_tick_checks(path, eng, cfg, seed, per_tick, planned_per_tick=None, prefill=False):
     """``tick_profile_<path>`` with our kernels' calls a tick held to
     ``per_tick`` ({trace name: calls}: every projection of a smollm tick on
     the path's VMM kernel; every sLSTM layer on the scan and the head on the
     fast kernel for xlstm; none for a planned chip, whose planned calls a
     tick are held to ``planned_per_tick`` and whose trace must hold no VMM
-    kernel), then ``graph_vs_eager_<path>``."""
+    kernel), then ``graph_vs_eager_<path>`` and, with ``prefill``,
+    ``prefill_vs_eager_<path>``."""
     prof = tick_profile(f"tick_profile_{path}", eng, make_requests(cfg, seed + 3), ticks=3)
     seen = {k["name"]: k["calls_per_tick"] for k in prof["kernels"]}
     require(seen == per_tick, f"tick_profile_{path}: kernels a tick {seen}, expected {per_tick}")
@@ -1287,7 +1394,9 @@ def replayed_tick_checks(path, eng, cfg, seed, per_tick, planned_per_tick=None):
     )
     if planned_per_tick:
         require(prof["vmm_kernel_calls_per_tick"] == 0, f"tick_profile_{path}: a VMM kernel ran on a planned chip")
-    return graph_vs_eager(path, eng, make_requests(cfg, seed + 6))
+    graph_vs_eager(path, eng, make_requests(cfg, seed + 6))
+    if prefill:
+        prefill_vs_eager(path, eng.runner, seed + 9)
 
 
 def replay_vs_eager_ticks(eng, ticks):
@@ -1360,6 +1469,117 @@ def graph_vs_eager(path, eng, prompts, ticks=12):
         f"graph_vs_eager_{path}: the replayed tick is not faster than the eager one",
     )
     return line
+
+
+def padded_prompt(runner, prompt):
+    """``prompt`` zero-padded to the length of its prefill, (1, length) int64."""
+    out = np.zeros((1, runner.prefill_len(len(prompt))), np.int64)
+    out[0, : len(prompt)] = prompt
+    return out
+
+
+def eager_admission(runner, pool, slot, prompt):
+    """An admission as the runner made it before its prefill was compiled:
+    a fresh one-slot cache, the eager prefill of the zero-padded prompt,
+    the copy into ``pool``'s ``slot``.  Returns (logits, one-slot cache)."""
+    cache = runner.init_cache(1)
+    tokens = torch.from_numpy(padded_prompt(runner, prompt)).to(runner.device)
+    logits, _ = runner._with_crossbar(lambda: model_lib.prefill(runner.params, runner.cfg, tokens, cache))
+    for big, one in zip(cache_leaves(pool), cache_leaves(cache)):
+        big[:, slot] = one[:, 0]
+    return logits, cache
+
+
+def admission_vs_eager(runner, prompt, pools, eager_first=False):
+    """Admit ``prompt`` through ``runner.admit_slot`` (its bucket's prefill
+    graph) into slot 0 of ``pools[0]`` and eagerly (``eager_admission``)
+    into slot 0 of ``pools[1]``, the eager one first if asked.  Returns whether the graph's
+    logits, its one-slot cache and the filled slot are ``torch.equal`` to
+    the eager ones, the graph, and each admission's seconds (host clock,
+    device synchronised), through the graph and eager."""
+    graph_pool, eager_pool = pools
+    seconds, out = {}, {}
+    for name in (("eager", "graph") if eager_first else ("graph", "eager")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "graph":
+            runner.admit_slot(graph_pool, 0, Request(rid=0, prompt=prompt))
+        else:
+            out["eager"] = eager_admission(runner, eager_pool, 0, prompt)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    graph = runner.prefill_graphs[runner.prefill_len(len(prompt))]
+    logits, cache = out["eager"]
+    equal = dict(
+        logits=bool(torch.equal(graph.logits, logits)),
+        cache=all(torch.equal(a, b) for a, b in zip(cache_leaves(graph.cache), cache_leaves(cache))),
+        slot=all(torch.equal(a, b) for a, b in zip(cache_leaves(graph_pool), cache_leaves(eager_pool))),
+    )
+    return equal, graph, seconds["graph"], seconds["eager"]
+
+
+def prefill_vs_eager(path, runner, seed, buckets=(32, 64, 128, 256)):
+    """Every bucket's admission through the runner's prefill graph against
+    the eager admission (``eager_admission``) on one-slot pools of their
+    own, alternating which goes first: a full bucket's prompt (a capture
+    where the bucket had no graph yet), then the bucket's shortest prompt,
+    the full one and the shortest again — after a longer prompt in the
+    bucket, the shorter one's cache must hold nothing of it.  Logits, the
+    one-slot cache and the slot ``torch.equal`` every time; both admission
+    medians over the three last pairs (host clock), a replay's device span
+    (CUDA events), the capture's seconds and the graph's pool bytes."""
+    require(runner.max_seq == buckets[-1], f"prefill_vs_eager_{path}: max_seq {runner.max_seq}")
+    rng = np.random.default_rng(seed)
+    pools = [runner.init_cache(1), runner.init_cache(1)]
+    lines, shortest = [], 1
+    for b in buckets:
+        full = rng.integers(1, runner.cfg.vocab_size, size=b)
+        short = rng.integers(1, runner.cfg.vocab_size, size=shortest)
+        held = len(runner.prefill_graphs)
+        checks, replay_s, eager_s = [], [], []
+        for i, prompt in enumerate((full, short, full, short)):
+            equal, graph, r_s, e_s = admission_vs_eager(runner, prompt, pools, eager_first=i % 2 == 1)
+            checks.append(dict(prompt_len=len(prompt), **equal))
+            if i == 0:
+                first_ms = 1e3 * r_s
+            else:
+                replay_s.append(r_s)
+                eager_s.append(e_s)
+        lines.append(dict(
+            bucket=b, prompt_lens=[len(full), len(short)], captured_here=len(runner.prefill_graphs) > held,
+            capture_seconds=graph.capture_seconds, pool_bytes=graph.pool_bytes, first_admission_ms=first_ms,
+            admission_ms_median=1e3 * statistics.median(replay_s),
+            eager_admission_ms_median=1e3 * statistics.median(eager_s),
+            replay_device_ms=cuda_ms(graph.graph.replay, reps=5, warmup=1),
+            admission_ms=[1e3 * x for x in replay_s], eager_admission_ms=[1e3 * x for x in eager_s],
+            checks=checks, equal=all(c["logits"] and c["cache"] and c["slot"] for c in checks),
+        ))
+        shortest = b + 1
+    line = dict(
+        phase=f"prefill_vs_eager_{path}", arch=runner.cfg.name, max_seq=runner.max_seq,
+        all_equal=all(x["equal"] for x in lines), buckets=lines,
+    )
+    emit(line)
+    require(line["all_equal"], f"prefill_vs_eager_{path}: a replayed prefill differs from the eager one")
+    return line
+
+
+def recaptured_prefill(phase, runner, prompt):
+    """After a chip swap: the runner holds no prefill graph; the next
+    admission (``prompt``, into a pool of its own) captures its bucket's
+    graph anew, and its logits, cache and slot are ``torch.equal`` to an
+    eager admission on the new chip."""
+    require(not runner.prefill_graphs, f"{phase}: the swap kept prefill graphs {sorted(runner.prefill_graphs)}")
+    equal, graph, replay_s, eager_s = admission_vs_eager(runner, prompt, (runner.init_cache(1), runner.init_cache(1)))
+    require(
+        list(runner.prefill_graphs) == [graph.bucket] and graph.graph is not None and graph.replays == 1,
+        f"{phase}: the admission after the swap did not capture bucket {graph.bucket} anew",
+    )
+    require(all(equal.values()), f"{phase}: the recaptured prefill differs from an eager one on the new chip {equal}")
+    return dict(
+        bucket=graph.bucket, capture_seconds=graph.capture_seconds, admission_ms=1e3 * replay_s,
+        eager_admission_ms=1e3 * eager_s, **{f"{k}_equal_eager": v for k, v in equal.items()},
+    )
 
 
 def chip_logits(cfg, params, eng, dev):
@@ -1664,6 +1884,7 @@ def lifecycle(cfg, params, dev, seed):
     def rebind(name, action):
         seconds = timed(action)[1]
         require(eng.runner.decode_graph is None, f"lifecycle: {name} kept the captured tick")
+        prefill = recaptured_prefill(f"lifecycle {name}", eng.runner, prompts[0])
         saved = clone_cache(eng.cache)
         unequal, caches_equal, max_diff, replay_s, eager_s = replay_vs_eager_ticks(eng, 3)
         for a, b in zip(cache_leaves(eng.cache), cache_leaves(saved)):
@@ -1675,7 +1896,7 @@ def lifecycle(cfg, params, dev, seed):
         )
         graphs.append(graph)
         steps[name] = dict(
-            seconds=seconds, capture_seconds=graph.capture_seconds, logits_equal=not unequal,
+            seconds=seconds, capture_seconds=graph.capture_seconds, prefill=prefill, logits_equal=not unequal,
             caches_equal=caches_equal, max_abs_logit_diff=max_diff,
             decode_tick_ms=[1e3 * x for x in replay_s], eager_decode_tick_ms=[1e3 * x for x in eager_s],
         )
@@ -1710,6 +1931,7 @@ def lifecycle(cfg, params, dev, seed):
     with tempfile.TemporaryDirectory() as d:
         for _ in range(2):
             slot, seconds = timed(lambda: small.refresh(d))
+            require(not small.runner.prefill_graphs, "lifecycle: refresh(directory) kept prefill graphs")
             for p in prompts:
                 small.submit(p, max_new_tokens=16)
             got = drain(small)[-len(prompts):]
@@ -1827,9 +2049,13 @@ def traffic_run(runner, arrivals, block=None, deadlines=None, window=None):
     deadline (the run held to the slot loop); else each at its arrival tick
     with its class's deadline.  The scheduler keeps no clock and no counts, so
     they are taken from outside: each step's host seconds, by whether it ran
-    an admission (a prefill), a page-out or page-in, or only the decode tick;
-    each admission's seconds by bucket; each page-out's and page-in's seconds
-    and host bytes; the decode graphs the run used.  At the first page-out the
+    an admission that captured its bucket's prefill graph, an admission (a
+    prefill), a page-out or page-in, or only the decode tick; each
+    admission's seconds by bucket, replaying and capturing apart; each
+    page-out's and page-in's seconds and host bytes; the decode graphs the
+    run used (and the seconds of the step that captured it: each run's pool
+    is new, so its first decode step captures) and the prefill replays it
+    made.  At the first page-out the
     slot's prefix is cloned, and held ``torch.equal`` to the slot its page-in
     fills.  ``window`` = (phase, first tick, ticks): those ticks run in one
     ``profile_window`` (its line is the result's ``profile``).  The launch
@@ -1863,8 +2089,10 @@ def traffic_run(runner, arrivals, block=None, deadlines=None, window=None):
 
     kv.page_out, kv.page_in = page_out, page_in
     queue = list(arrivals)
-    steps = dict(admission=[], paging=[], decode_only=[])
+    steps = dict(admission_with_capture=[], admission=[], paging=[], decode_only=[])
+    replays = lambda: sum(g.replays for g in runner.prefill_graphs.values())  # noqa: E731
     graphs, counts = [], dict(decode_ticks=0, idle_ticks=0, decoded_tokens=0)
+    decode_capture_s = []  # the step that captured the run's decode tick (in its kind too)
 
     def one_step():
         while queue and (deadlines is None or queue[0][0] <= sched.tick):
@@ -1873,7 +2101,7 @@ def traffic_run(runner, arrivals, block=None, deadlines=None, window=None):
                 prompt, max_new_tokens=cls.max_new_tokens,
                 deadline=None if deadlines is None else deadlines[cls.name],
             )
-        admitted, paged = adm.count, len(paging["out_s"]) + len(paging["in_s"])
+        admitted, captured, paged = adm.count, adm.captures, len(paging["out_s"]) + len(paging["in_s"])
         t0 = time.perf_counter()
         n = sched.step()
         torch.cuda.synchronize()
@@ -1885,7 +2113,10 @@ def traffic_run(runner, arrivals, block=None, deadlines=None, window=None):
         counts["decoded_tokens"] += n
         if not graphs or runner.decode_graph is not graphs[-1]:
             graphs.append(runner.decode_graph)
-        if adm.count > admitted:
+            decode_capture_s.append(dt)
+        if adm.captures > captured:
+            steps["admission_with_capture"].append(dt)
+        elif adm.count > admitted:
             steps["admission"].append(dt)
         elif len(paging["out_s"]) + len(paging["in_s"]) > paged:
             steps["paging"].append(dt)
@@ -1903,6 +2134,7 @@ def traffic_run(runner, arrivals, block=None, deadlines=None, window=None):
     kvmm.reset_counters()
     kscan.reset_counters()
     tprog.reset_planned_calls()
+    replays_before = replays()
     with timed_admissions(runner) as adm:
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -1925,6 +2157,9 @@ def traffic_run(runner, arrivals, block=None, deadlines=None, window=None):
         latency_ticks_p99=float(np.percentile(latency, 99)) if latency else None,
         step_ms={k: ms_stats(v) for k, v in steps.items()},
         admission_ms={str(b): ms_stats(v) for b, v in sorted(adm.seconds.items())},
+        capturing_admission_ms={str(b): [1e3 * x for x in v] for b, v in sorted(adm.capturing.items())},
+        decode_capture_step_ms=[1e3 * x for x in decode_capture_s],
+        prefill_graphs=sorted(runner.prefill_graphs), prefill_replays=replays() - replays_before,
         page_out_ms=[1e3 * x for x in paging["out_s"]], page_in_ms=[1e3 * x for x in paging["in_s"]],
         page_out_bytes=paging["bytes"], captures=len(graphs),
         graph_replays=graphs[-1].replays if graphs else 0,
@@ -1958,8 +2193,8 @@ def farm_run(farm, arrivals):
     replica is idle (placement is decided at submission).  Returns the rids,
     the farm ticks, the seconds, the tokens by rid, and each replica's
     admissions, decode graphs and replays (and their totals, the run's
-    forwards); the launch counters and crossbar misses count this run
-    only."""
+    forwards), prefill graphs, prefill captures and prefill replays; the
+    launch counters and crossbar misses count this run only."""
     reset_crossbar_misses()
     kvmm.reset_counters()
     kscan.reset_counters()
@@ -1990,6 +2225,9 @@ def farm_run(farm, arrivals):
         new_tokens=n_tok, wall_tokens_per_s=n_tok / seconds, tokens={r.rid: r.generated for r in reqs},
         prefills_by_replica=[a.count for a in adms], captures=[len(g) for g in graphs],
         replays_by_replica=replays, prefills=sum(a.count for a in adms), decode_ticks=sum(replays),
+        prefill_graphs_by_replica=[sorted(e.runner.prefill_graphs) for e in farm.replicas],
+        prefill_captures_by_replica=[a.captures for a in adms],
+        prefill_replays_by_replica=[sum(g.replays for g in e.runner.prefill_graphs.values()) for e in farm.replicas],
         launches=dict(kvmm.LAUNCHES, **kscan.LAUNCHES), plain_calls=dict(kvmm.PLAIN_CALLS, **kscan.PLAIN_CALLS),
         misses=len(crossbar_misses()),
     )
@@ -2019,9 +2257,12 @@ def traffic_phases(cfg, params, dev, seed):
     n_proj = sum(a.shape[0] if a.stacked else 1 for a in eng.programmed.by_name.values())
     by_phase = {}
 
-    # serve_traffic_exact: the slot loop, then the scheduler on the same
-    # runner, every request submitted up front: identical batches
+    # serve_traffic_exact: the scheduler, then the slot loop on the same
+    # runner, every request submitted up front: identical batches (the
+    # scheduler first: its first admission of each bucket captures the
+    # bucket's prefill graph)
     t_phase = time.perf_counter()
+    exact = traffic_run(eng.runner, arrivals)
     for _, cls, prompt in arrivals:
         eng.submit(prompt, max_new_tokens=cls.max_new_tokens)
     kvmm.reset_counters()
@@ -2030,7 +2271,6 @@ def traffic_phases(cfg, params, dev, seed):
     slot_tokens = drain(eng)
     slot_s = time.perf_counter() - t0
     slot_launches = dict(kvmm.LAUNCHES)
-    exact = traffic_run(eng.runner, arrivals)
     line = dict(
         phase="serve_traffic_exact", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
         mix=SHORT_LONG_FULL.name, seed=seed, max_batch=TRAFFIC_BATCH, max_seq=TRAFFIC_SEQ,
@@ -2047,6 +2287,13 @@ def traffic_phases(cfg, params, dev, seed):
         f"serve_traffic_exact: {exact['captures']} captures, {exact['graph_replays']} replays for "
         f"{exact['decode_ticks']} decode ticks",
     )
+    require(
+        exact["prefill_replays"] == exact["prefills"] and exact["prefill_graphs"] == [32, 256]
+        and {b: len(v) for b, v in exact["capturing_admission_ms"].items()} == {"32": 1, "256": 1}
+        and exact["step_ms"]["admission_with_capture"]["n"] >= 1,
+        f"serve_traffic_exact: {exact['prefill_replays']} prefill replays for {exact['prefills']} admissions, "
+        f"graphs {exact['prefill_graphs']}, capturing admissions {exact['capturing_admission_ms']}",
+    )
     require_kernels("serve_traffic_exact", exact, {"fast": n_proj})
     by_phase["serve_traffic_exact"] = {k: v + slot_launches.get(k, 0) for k, v in exact["launches"].items()}
 
@@ -2055,8 +2302,18 @@ def traffic_phases(cfg, params, dev, seed):
     t_phase = time.perf_counter()
     runs = [traffic_run(eng.runner, arrivals, TRAFFIC_POOL, TRAFFIC_DEADLINE) for _ in range(2)]
     # a third run with ticks [TRAFFIC_WINDOW[1], + TRAFFIC_WINDOW[2]) in one
-    # profiled window (tick_profile_traffic); its step times are not kept
-    runs.append(traffic_run(eng.runner, arrivals, TRAFFIC_POOL, TRAFFIC_DEADLINE, window=TRAFFIC_WINDOW))
+    # profiled window (tick_profile_traffic); its step times are not kept.
+    # Run anew where the profiler dropped records of the window
+    dropped = []
+    while len(runs) < 3:
+        try:
+            runs.append(traffic_run(eng.runner, arrivals, TRAFFIC_POOL, TRAFFIC_DEADLINE, window=TRAFFIC_WINDOW))
+        except RecordsDropped as e:
+            dropped.append(e.short)
+            require(
+                len(dropped) < TRAFFIC_PROFILE_RUNS,
+                f"tick_profile_traffic: the profiler dropped records in {len(dropped)} runs: {dropped}",
+            )
     cpu, cpu_cfg, cpu_params = schedule_on_cpu(cfg, seed, arrivals)
     run, prof = runs[0], runs[2]
     line = dict(
@@ -2067,7 +2324,8 @@ def traffic_phases(cfg, params, dev, seed):
         repeat=dict(schedule_equal=runs[1]["schedule"] == run["schedule"], tokens_equal=runs[1]["tokens"] == run["tokens"],
                     seconds=runs[1]["seconds"], tokens_per_s=runs[1]["tokens_per_s"], step_ms=runs[1]["step_ms"]),
         profiled_run=dict(schedule_equal=prof["schedule"] == run["schedule"], tokens_equal=prof["tokens"] == run["tokens"],
-                          window_ticks=TRAFFIC_WINDOW[1:], window_prefills=prof["profile"]["prefills"]),
+                          window_ticks=TRAFFIC_WINDOW[1:], window_prefills=prof["profile"]["prefills"],
+                          runs_with_dropped_records=dropped),
         cpu_schedule=dict(n_layers=cpu_cfg.n_layers, equal=cpu["schedule"] == run["schedule"],
                           preemptions=cpu["preemptions"], ticks=cpu["ticks"], seconds=cpu["seconds"]),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, phase_seconds=time.perf_counter() - t_phase,
@@ -2091,6 +2349,11 @@ def traffic_phases(cfg, params, dev, seed):
         require(
             r["captures"] == 1 and r["graph_replays"] == r["decode_ticks"],
             f"serve_traffic: {r['captures']} captures for one run (page-ins must keep the graph)",
+        )
+        require(
+            r["prefill_replays"] == r["prefills"] and not r["capturing_admission_ms"],
+            f"serve_traffic: {r['prefill_replays']} prefill replays for {r['prefills']} admissions, captures "
+            f"{r['capturing_admission_ms']} (the buckets were captured in serve_traffic_exact)",
         )
         require_kernels("serve_traffic", r, {"fast": n_proj})
     by_phase["serve_traffic"] = {k: sum(r["launches"][k] for r in runs) for k in run["launches"]}
@@ -2130,7 +2393,14 @@ def farm_phase(cfg, params, dev, arrivals, store, save_s, n_proj, cpu_cfg, cpu_p
                             ("one_replica", 1, "round_robin")):
         f, restore_s[name] = farm(n, policy)
         runs[name] = farm_run(f, arrivals)
-        require(all(c == 1 for c in runs[name]["captures"]), f"farm {name}: captures {runs[name]['captures']}")
+        r = runs[name]
+        require(all(c == 1 for c in r["captures"]), f"farm {name}: captures {r['captures']}")
+        require(
+            r["prefill_replays_by_replica"] == r["prefills_by_replica"]
+            and r["prefill_captures_by_replica"] == [len(b) for b in r["prefill_graphs_by_replica"]],
+            f"farm {name}: prefill replays {r['prefill_replays_by_replica']} for admissions "
+            f"{r['prefills_by_replica']}, captures {r['prefill_captures_by_replica']}",
+        )
         require_kernels(f"farm {name}", runs[name], {"fast": n_proj})
         del f
         gc.collect()
@@ -2175,10 +2445,13 @@ def farm_lifecycle(cfg, params, dev, arrivals):
     serving: age replica 0 (its health worst above replica 1's), drain it,
     submit (routed to replica 1), refresh replica 0 into a store slot once it
     is idle (program, save, commit, hot swap), undrain, submit (routed to
-    replica 0).  Replica 0 captures exactly
-    once after the refresh; replica 1's decode graph is the same object
-    throughout; replica 0's tokens after the refresh equal a fresh restore's.
-    Returns the launches of the serving after the refresh."""
+    replica 0).  Aging and the refresh each drop replica 0's decode and
+    prefill graphs and none of replica 1's; after the refresh replica 0's
+    next admission captures its bucket's prefill anew, ``torch.equal`` to an
+    eager one on the new chip, and its tick is captured exactly once;
+    replica 1's decode and prefill graphs are the same objects throughout;
+    replica 0's tokens after the refresh equal a fresh restore's.  Returns
+    the launches of the serving after the refresh."""
     torch.cuda.reset_peak_memory_stats()
     cut_cfg, cparams = cut_params(cfg, params, 2) if cfg.n_layers > 2 else (cfg, params)
     mode = CrossbarMode(enabled=True, strict=True, device=LIFECYCLE_DEVICE)
@@ -2192,9 +2465,17 @@ def farm_lifecycle(cfg, params, dev, arrivals):
         r_b = farm.submit(long_, max_new_tokens=32)
         while not farm.is_idle(0):
             farm.step()
-        g1 = farm.replicas[1].runner.decode_graph
-        require(g1 is not None and farm.replicas[0].runner.decode_graph is not None, "farm_lifecycle: no captures")
+        r0, r1 = (e.runner for e in farm.replicas)
+        g1, p1 = r1.decode_graph, dict(r1.prefill_graphs)
+        require(
+            g1 is not None and r0.decode_graph is not None and r0.prefill_graphs and p1,
+            "farm_lifecycle: no captures",
+        )
+        # replica 1 keeps its tick and every prefill graph it had (it may
+        # capture another bucket's meanwhile)
+        kept = lambda: r1.decode_graph is g1 and all(r1.prefill_graphs.get(b) is g for b, g in p1.items())  # noqa: E731
         farm.replicas[0].age(LIFECYCLE_AGE_S)
+        aging_dropped = r0.decode_graph is None and not r0.prefill_graphs and kept()
         health = [h.worst for h in farm.health()]
         uptimes_aged = farm.uptimes()
         farm.drain(0)
@@ -2206,7 +2487,8 @@ def farm_lifecycle(cfg, params, dev, arrivals):
         slot = farm.refresh(0, d)
         torch.cuda.synchronize()
         refresh_s = time.perf_counter() - t0
-        dropped = farm.replicas[0].runner.decode_graph is None
+        dropped = r0.decode_graph is None and not r0.prefill_graphs and kept()
+        prefill = recaptured_prefill("farm_lifecycle", r0, short[2])
         farm.undrain(0)
         back = farm.submit(short[2], max_new_tokens=8)
         reset_crossbar_misses()
@@ -2219,7 +2501,7 @@ def farm_lifecycle(cfg, params, dev, arrivals):
                 g = farm.replicas[0].runner.decode_graph
                 if g is not None and (not g0_seen or g0_seen[-1] is not g):
                     g0_seen.append(g)
-                g1_kept = g1_kept and farm.replicas[1].runner.decode_graph is g1
+                g1_kept = g1_kept and kept()
         served = dict(
             launches=dict(kvmm.LAUNCHES, **kscan.LAUNCHES), plain_calls=dict(kvmm.PLAIN_CALLS, **kscan.PLAIN_CALLS),
             misses=len(crossbar_misses()),
@@ -2237,7 +2519,8 @@ def farm_lifecycle(cfg, params, dev, arrivals):
         device=dataclasses.asdict(LIFECYCLE_DEVICE), age_s=LIFECYCLE_AGE_S, health_worst_after_aging=health,
         uptimes_after_aging=uptimes_aged, uptimes_after_refresh=farm.uptimes(), keep_routed_to=farm.replica_of(keep),
         back_routed_to=farm.replica_of(back), idle_before_refresh=idle_before_refresh, refresh_slot=slot,
-        active_slot=active, refresh_seconds=refresh_s, refresh_dropped_graph=dropped,
+        active_slot=active, refresh_seconds=refresh_s, aging_dropped_replica0_graphs=aging_dropped,
+        refresh_dropped_graph=dropped, replica0_prefill_after_refresh=prefill,
         replica0_captures_after_refresh=len(g0_seen), replica1_graph_kept=g1_kept,
         tokens_equal_fresh_restore=res[back].generated == fresh_tokens,
         finished=[res[r].done for r in (r_a, r_b, keep, back)], **served,
@@ -2246,6 +2529,7 @@ def farm_lifecycle(cfg, params, dev, arrivals):
     emit(line)
     require(health[0] > health[1] and uptimes_aged[0] > 0 == uptimes_aged[1], f"farm_lifecycle: aging {line}")
     require(line["keep_routed_to"] == 1 and line["back_routed_to"] == 0, "farm_lifecycle: routing around the drain")
+    require(aging_dropped, "farm_lifecycle: aging replica 0 kept its graphs or touched replica 1's")
     require(idle_before_refresh and dropped and slot == active, "farm_lifecycle: the refresh")
     require(line["uptimes_after_refresh"][0] == 0.0, "farm_lifecycle: the refreshed replica has aged")
     require(len(g0_seen) == 1 and g1_kept, f"farm_lifecycle: captures {len(g0_seen)}, replica 1 kept {g1_kept}")
@@ -2320,6 +2604,10 @@ def serve_traffic_xlstm(cfg, params, dev, seed):
         run["captures"] == 1 and run["graph_replays"] == run["decode_ticks"],
         f"serve_traffic_xlstm: {run['captures']} captures, {run['graph_replays']} replays",
     )
+    require(
+        not run["prefill_graphs"] and run["prefill_replays"] == 0 and not run["capturing_admission_ms"],
+        f"serve_traffic_xlstm: prefill graphs {run['prefill_graphs']} on a recurrent model",
+    )
     require_kernels("serve_traffic_xlstm", run, {"fast": 1, "slstm_scan": n_scan})
     require(line["blocks_held"] == [1, 1] and line["blocks_for_max_seq"] == 1, "serve_traffic_xlstm: blocks")
     require(state_equal, "serve_traffic_xlstm: the paged state differs")
@@ -2362,8 +2650,12 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0, built=_build.last_build_seconds is not None,
               build_dir=os.path.relpath(_build.build_dir())))
 
+    t0 = time.perf_counter()
     cases = kernels_phase(dev, args.quick) + scan_cases(dev, args.quick)
-    emit(dict(phase="kernels", n_cases=len(cases), all_equal=all(c["equal"] for c in cases)))
+    emit(dict(
+        phase="kernels", n_cases=len(cases), all_equal=all(c["equal"] for c in cases),
+        seconds=time.perf_counter() - t0,
+    ))
     planned_datapaths(dev, args.quick)
     emit(dict(phase="cpu_vs_card_projections", **cpu_vs_card_projections(dev)))
 
@@ -2382,7 +2674,7 @@ def main() -> int:
         f"ideal chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain matmul model",
     )
     emit(line)
-    replayed_tick_checks("ideal", eng, cfg, args.seed, {"fast_kernel": line["projections"]})
+    replayed_tick_checks("ideal", eng, cfg, args.seed, {"fast_kernel": line["projections"]}, prefill=True)
     del eng
     torch.cuda.empty_cache()
 
@@ -2415,7 +2707,7 @@ def main() -> int:
         )
     line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)[0]
     emit(line)
-    replayed_tick_checks("paper", eng, cfg, args.seed, {"paper_mma_kernel": line["projections"]})
+    replayed_tick_checks("paper", eng, cfg, args.seed, {"paper_mma_kernel": line["projections"]}, prefill=True)
     del eng
     torch.cuda.empty_cache()
 
@@ -2424,7 +2716,7 @@ def main() -> int:
     line, launches_noisy, eng = serve_phase("serve_noisy", cfg, params, noisy, "noisy", dev, args.seed + 1, False)
     line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)[0]
     emit(line)
-    replayed_tick_checks("noisy", eng, cfg, args.seed, {"noisy_mma_kernel": line["projections"]})
+    replayed_tick_checks("noisy", eng, cfg, args.seed, {"noisy_mma_kernel": line["projections"]}, prefill=True)
     del eng
     torch.cuda.empty_cache()
 
@@ -2465,7 +2757,9 @@ def main() -> int:
         )
     require(line["tokens_equal_ideal"], "serve_planned: tokens differ from the ideal chip's")
     require(line["logits_equal_ideal"], "serve_planned: logits differ from the ideal chip's")
-    replayed_tick_checks("planned", eng, cfg, args.seed, {}, planned_per_tick={"karatsuba2": line["projections"]})
+    replayed_tick_checks(
+        "planned", eng, cfg, args.seed, {}, planned_per_tick={"karatsuba2": line["projections"]}, prefill=True,
+    )
     del eng, ideal_logits, planned_logits
     torch.cuda.empty_cache()
 

@@ -17,11 +17,14 @@ runner: ``serving.scheduler.ContinuousBatchingScheduler`` (deadlines, a block
 pool, exact preemption) and ``serving.farm.ChipFarm`` (replicas of this
 engine behind one router).
 
-The decode tick is compiled as the reference jits it: on the card the pool's
-``decode_step`` is captured once as a CUDA graph and replayed every tick
-(``serving.graphs.DecodeGraph``); prefill stays eager.  A captured graph
-reads the artifacts at the addresses it was captured with, so every swap of
-the served chip (``ModelRunner._rebind``) drops it and the next tick
+The decode tick and the prefill are compiled as the reference jits them: on
+the card the pool's ``decode_step`` is captured once as a CUDA graph and
+replayed every tick (``serving.graphs.DecodeGraph``), and an attention
+model's prefill is captured once per bucket and replayed at every admission
+(``serving.graphs.PrefillGraph``); a recurrent model's prefill, at the
+prompt's exact length, stays eager.  A captured graph reads the artifacts at
+the addresses it was captured with, so every swap of the served chip
+(``ModelRunner._rebind``) drops them all and the next tick or admission
 captures afresh; KV caches, slots and pending requests are untouched, so
 in-flight requests go on at the next tick.
 
@@ -33,7 +36,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
-from typing import Callable, Dict, List, Optional
+import types
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,7 +52,7 @@ from repro_torch.device.models import wants_repair
 from repro_torch.models import layers as layers_mod
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import CrossbarMode, crossbar_mode
-from repro_torch.serving.graphs import DecodeGraph
+from repro_torch.serving.graphs import DecodeGraph, PrefillBuffers, PrefillGraph
 
 
 @dataclasses.dataclass
@@ -112,6 +116,11 @@ class ModelRunner:
         if verify_coverage:
             self.verify_crossbar_coverage()
         self._decode_graph: Optional[DecodeGraph] = None
+        # one captured prefill per bucket (attention models), as the
+        # reference keeps one jitted prefill per bucket, on static inputs
+        # they share (made at the first admission)
+        self._prefill_graphs: Dict[int, PrefillGraph] = {}
+        self._prefill_buffers: Optional[PrefillBuffers] = None
 
     # ------------------------------------------------------------------
     @property
@@ -297,15 +306,18 @@ class ModelRunner:
         return prog
 
     def _rebind(self, prog) -> None:
-        """Swap the served chip and drop the captured decode tick.
+        """Swap the served chip and drop the captured decode tick and
+        prefills.
 
-        The graph reads the artifacts at the addresses it was captured with
+        A graph reads the artifacts at the addresses it was captured with
         (and ``compensate`` turns ``comp_scale`` from None into a tensor,
         which changes the program itself), so it is dropped, never patched
-        in place: the next tick captures afresh against the new chip.  KV
-        caches, slots and pending requests belong to the scheduler and are
-        untouched — in-flight requests go on at the next tick."""
+        in place: the next tick and the next admission of each bucket
+        capture afresh against the new chip.  KV caches, slots and pending
+        requests belong to the scheduler and are untouched — in-flight
+        requests go on at the next tick."""
         self._decode_graph = None
+        self._prefill_graphs.clear()
         self.crossbar = dataclasses.replace(self.crossbar, programmed=prog)
 
     def age(self, dt_s: float) -> None:
@@ -420,16 +432,32 @@ class ModelRunner:
         place).  Returns ``(cache, pos, last_tok, first_tok)``; attention
         models re-issue the last prompt token on the first decode tick, so
         ``first_tok`` is None; recurrent models sample the first token from
-        the prefill logits."""
+        the prefill logits.
+
+        An attention model's prompt is prefilled by its bucket's
+        ``PrefillGraph`` (captured at the bucket's first admission, on the
+        card); a recurrent model's runs eagerly at its exact length, on a
+        fresh one-slot cache."""
         S = self.check_prompt(req.prompt, req.truncate)
         recurrent = self.cfg.family in ("ssm", "hybrid")
-        prompt = np.zeros((1, self.prefill_len(S)), np.int64)
+        length = self.prefill_len(S)
+        prompt = np.zeros((1, length), np.int64)
         prompt[0, :S] = np.asarray(req.prompt)[:S]
-        small_cache = self.init_cache(1)
-        tokens = torch.from_numpy(prompt).to(self.device)
-        logits, filled = self._with_crossbar(
-            lambda: model_lib.prefill(self.params, self.cfg, tokens, small_cache)
-        )
+        if recurrent:
+            # one graph per distinct prompt length would be one capture and
+            # one pool each: recurrent prefills stay eager
+            small_cache = self.init_cache(1)
+            tokens = torch.from_numpy(prompt).to(self.device)
+            logits, filled = self._with_crossbar(
+                lambda: model_lib.prefill(self.params, self.cfg, tokens, small_cache)
+            )
+        else:
+            graph = self._prefill_graphs.get(length)
+            if graph is None:
+                if self._prefill_buffers is None:
+                    self._prefill_buffers = PrefillBuffers(self)
+                graph = self._prefill_graphs[length] = PrefillGraph(self, length, self._prefill_buffers)
+            logits, filled = graph.run(prompt)
         for big_stage, one_stage in zip(cache, filled):
             for b, entry in one_stage.items():
                 for n, one in entry.items():
@@ -456,6 +484,13 @@ class ModelRunner:
         """The captured tick of the last cache decoded (None before the
         first tick); a runner keeps at most one."""
         return self._decode_graph
+
+    @property
+    def prefill_graphs(self) -> Mapping[int, PrefillGraph]:
+        """The captured prefills by bucket (read-only; empty for a recurrent
+        model and after every chip swap); a runner keeps at most one per
+        bucket up to ``max_seq``."""
+        return types.MappingProxyType(self._prefill_graphs)
 
     def sample(self, logits: np.ndarray) -> np.ndarray:
         if self.temperature <= 0.0:

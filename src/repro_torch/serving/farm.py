@@ -18,7 +18,7 @@ This module adds the routing layer:
     refreshed without dropping traffic: drain -> wait idle -> refresh ->
     undrain, while the other replicas keep admitting.  A swap goes through
     that replica's ``ModelRunner._rebind``: it drops that replica's captured
-    tick and no other's.
+    tick and prefills and no other's.
 
 The farm is a pure fan-out: replicas share no state (their decode ticks run
 one after the other on one card, each its own graph replay), so farm

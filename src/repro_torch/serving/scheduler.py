@@ -27,7 +27,8 @@ The runner is driven only through ``check_prompt`` / ``admit_slot`` /
 ``decode`` / ``sample``: a decode tick is the runner's captured
 ``DecodeGraph`` replay (the pool's leaves never move — admission and page-in
 write them in place — so one capture serves the whole run), an admission is
-the runner's eager prefill.
+the runner's prefill: its bucket's captured ``PrefillGraph`` replay for an
+attention model, an eager prefill for a recurrent one.
 
 Exactness: with ample blocks, no deadlines and the same admission order,
 ``step()`` makes exactly the decisions ``ServingEngine.step()`` makes —

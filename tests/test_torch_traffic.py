@@ -512,7 +512,9 @@ def test_prefill_len_is_the_length_admit_slot_prefills(fixture, S, request, monk
     """``ModelRunner.prefill_len`` (what a timing of admissions by bucket
     reads) is the length of the prefill ``admit_slot`` runs: the reference's
     bucket capped at ``max_seq`` for attention, the exact length for a
-    recurrent model."""
+    recurrent model.  An attention model's first admission of a bucket runs
+    its ``PrefillGraph``'s warm-up (on a clone) and then the prefill, a second
+    one the prefill alone; a recurrent model's each run one eager prefill."""
     runner = _runner(request.getfixturevalue(fixture), max_seq=48)
     seen = []
     real = TM.prefill
@@ -522,7 +524,9 @@ def test_prefill_len_is_the_length_admit_slot_prefills(fixture, S, request, monk
         return real(params, cfg, tokens, cache)
 
     monkeypatch.setattr(TM, "prefill", prefill)
-    runner.admit_slot(runner.init_cache(1), 0, Request(rid=0, prompt=_prompt(S)))
     recurrent = runner.cfg.family in ("ssm", "hybrid")
-    assert seen == [runner.prefill_len(S)]
+    for n in ((1, 1) if recurrent else (2, 1)):
+        before = len(seen)
+        runner.admit_slot(runner.init_cache(1), 0, Request(rid=0, prompt=_prompt(S)))
+        assert seen[before:] == [runner.prefill_len(S)] * n
     assert runner.prefill_len(S) == (S if recurrent else min(j_bucket(S), runner.max_seq))
