@@ -13,7 +13,8 @@ Phases (one JSON line each; any failure is an uncaught exception):
                kernels also at their tile edges, ragged N and K and extreme
                codes or cells (the fast one past its int32 fold too, and
                timed at every projection and head shape of the three dense
-               configs; the paper and noisy ones at K = 4096 and 14336), the
+               configs and of kimi-k2's rank share; the paper and noisy ones
+               at K = 4096 and 14336), the
                scan at ragged dh, dh = 2048, 5 and 9 batch rows and one head,
                each scan case with the launch plan it ran
   planned_datapaths  the planned divide-and-conquer datapaths (Karatsuba
@@ -83,9 +84,31 @@ Phases (one JSON line each; any failure is an uncaught exception):
                from the ticks, ``capturing_admission_seconds`` those that
                captured.  xlstm's prefills, at each prompt's exact length,
                stay eager.
+  serve_kimi   kimi-k2-1t-a32b as rank 0 of an 8-way expert-parallel
+               deployment (experts 0-47 of 384; router, attention, shared
+               expert and head replicated; the other ranks' experts and the
+               psum over ranks are not part of it) at full width, cut to its
+               dense layer and 2 MoE layers, from an ideal chip: every
+               projection on the fast kernel, one launch an expert's
+               projection (311 a forward, derived from the config and
+               asserted), the logits' rel-L2 to the plain-matmul model of
+               the same share gated < 1 (a broken-datapath check) with each
+               MoE layer's routing agreement, peak memory, and a store round
+               trip on a copy cut to the dense layer and one MoE layer (a
+               4-D expert-bank artifact), then tick_profile_kimi,
+               graph_vs_eager_kimi, prefill_vs_eager_kimi
+  moe_expert_chips  one full-width kimi-k2 MoE FFN of 8 experts (the rank
+               share of EP48) programmed on NOISY_DEVICE with one chip
+               identity an expert, at 4 and 32 tokens: each noisy-kernel
+               call equal to its plain version, a CUDA-graph replay equal to
+               eager; one slab on two identities differs, on expert 0's
+               reproduces the bank's
+  moe_dispatch_card_vs_cpu  routing, slot tables and the combine from the
+               same router logits (on a grid, with ties) on the card and the
+               CPU: equal, at 4 and 256 tokens, with drops
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
                (ideal, paper, noisy, planned, xlstm, gemma2, minitron,
-               starcoder2), and 24 ticks of serve_traffic's mix (traffic):
+               starcoder2, kimi), and 24 ticks of serve_traffic's mix (traffic):
                device busy time and idle share, launches per tick, the
                heaviest kernels, and each of our kernels' device time and
                calls a tick, held equal to the launches the window added to
@@ -94,7 +117,7 @@ Phases (one JSON line each; any failure is an uncaught exception):
                eagerly on a clone of the cache: logits bit-equal every tick,
                caches after the last; both tick medians and a replay's
                device span
-  prefill_vs_eager_*  (ideal, paper, noisy, planned, gemma2) admissions at
+  prefill_vs_eager_*  (ideal, paper, noisy, planned, gemma2, kimi) admissions at
                buckets 32, 64, 128 and 256 (max_seq 256) through the
                runner's prefill graph and, alternating, eagerly (a fresh
                one-slot cache, the prefill, the copy into a slot): logits,
@@ -189,6 +212,8 @@ from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda, noisy_vmm_plain  # noq
 from repro_torch.kernels import slstm_scan as kscan  # noqa: E402
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_plain  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.moe import ExpertShare, expert_share  # noqa: E402
 from repro_torch.models.layers import CrossbarMode, crossbar_misses, crossbar_mode, reset_crossbar_misses  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     BlockCacheConfig, ChipFarm, ContinuousBatchingScheduler, ModelRunner, Request, ServingEngine,
@@ -263,6 +288,33 @@ REL_L2_MAX = {"smollm-360m": 0.25, "gemma2-9b": 0.6, "minitron-4b": 0.45, "starc
 # the store round trip of a dense chip runs on a copy of it cut to this
 # depth at full width: a full gemma2-9b store is 37 GB of npz
 STORE_CHECK_LAYERS = 2
+# kimi-k2-1t-a32b on one card: rank 0 of an 8-way expert-parallel
+# deployment (experts 0-47 of 384; the router, attention, shared expert and
+# head replicated), at full width, cut to its dense layer and 2 MoE layers;
+# the store round trip on a copy cut to the dense layer and 1 MoE layer
+KIMI, KIMI_SHARE, KIMI_LAYERS, KIMI_STORE_LAYERS = "kimi-k2-1t-a32b", ExpertShare(rank=0, ranks=8), 3, 2
+# the logits' rel-L2 to the plain-matmul model of the same share: a check
+# for a broken datapath (>= 1), printed, not a fidelity target
+KIMI_REL_L2_MAX = 1.0
+# kimi's projections on the fast kernel (K x N: the rows they run at): an
+# expert's wi / wg and wo at the capacity of 8 rows every expert buffer
+# holds at every served size (also the shared expert's shapes, at a decode
+# tick and a bucket); the router, attention q / k-v / o and the dense
+# layer's fused wi and wo at a decode tick and every prefill bucket; the
+# head at a prefill's last position and a decode tick
+KIMI_SHAPES = [
+    ((7168, 2048), (8, 4, 32)), ((2048, 7168), (8, 4, 32)), ((7168, 384), (4, 32, 64, 128, 256)),
+    ((7168, 8192), (4, 32, 64, 128, 256)), ((7168, 1024), (4, 32, 64, 128, 256)),
+    ((8192, 7168), (4, 32, 64, 128, 256)), ((7168, 36864), (4, 32, 64, 128, 256)),
+    ((18432, 7168), (4, 32, 64, 128, 256)), ((7168, 163840), (1, 4)),
+]
+# the kimi rows timed (the rest, prefill_vs_eager_kimi's buckets past 32,
+# are held to the plain version untimed)
+KIMI_TIMED_M = (1, 4, 8, 32)
+# moe_expert_chips: one full-width MoE FFN of the rank share of EP48 (8
+# experts) on NOISY_DEVICE, one chip identity an expert, at these token
+# counts
+EXPERT_CHIPS_SHARE, EXPERT_CHIPS_M = ExpertShare(rank=0, ranks=48), (4, 32)
 # (B, S) of the scan on the xlstm path: a decode tick of the slot pool, one
 # decode row, and prefills of 24 / 192 (the traffic mix's short and long
 # prompts), 32 / 48 (the longest prompt served) / 256 tokens
@@ -324,7 +376,14 @@ KERNELS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also carries the script's
+    seconds so far (``at_s``), so the time each phase took can be read."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -396,9 +455,12 @@ def make_x(rng, M, K, bits, sparse, dev):
 
 
 def make_w(rng, K, N, spec, dev):
+    """Uniform weight codes, drawn on ``dev`` from a seed ``rng`` gives: a
+    head's 1.2 G codes drawn by numpy took seconds of host time a case."""
     lo = -(1 << (spec.weight_bits - 1)) if spec.signed_weights else 0
-    w = rng.integers(lo, lo + (1 << spec.weight_bits), size=(K, N))
-    return torch.from_numpy(w.astype(np.int32)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    return torch.randint(lo, lo + (1 << spec.weight_bits), (K, N), generator=gen, device=dev, dtype=torch.int32)
 
 
 def active_planes(x, spec):
@@ -599,9 +661,17 @@ def kernels_phase(dev, quick: bool):
                     for M in rows:
                         cases.append(run_case(
                             kind, f"{tag}/{arch}", M, K, N, layer_scaled_spec(base, K), cfg,
-                            sparse=False, skip=True, seed=7000 + len(cases), dev=dev, timed=M > 1,
+                            sparse=False, skip=True, seed=7000 + len(cases), dev=dev, timed=True,
                         ))
                         torch.cuda.empty_cache()
+            # kimi-k2's projections and head (seeds of their own)
+            for (K, N), rows in (KIMI_SHAPES[:1] if quick else KIMI_SHAPES):
+                for M in (rows[:1] if quick else rows):
+                    cases.append(run_case(
+                        kind, f"{tag}/{KIMI}", M, K, N, layer_scaled_spec(base, K), cfg,
+                        sparse=False, skip=True, seed=6000 + len(cases), dev=dev, timed=M in KIMI_TIMED_M,
+                    ))
+                    torch.cuda.empty_cache()
             seed = fast_edge_cases(cases, base, seed, dev, quick)
         if tag == "safe_adaptive_signed" and not quick:
             # off this slice's path: their deepest K loops yet, untimed
@@ -609,6 +679,14 @@ def kernels_phase(dev, quick: bool):
                 cases.append(run_case(
                     kind, f"{tag}/deep_k", 4, K, 3584, layer_scaled_spec(base, K), cfg,
                     sparse=False, skip=True, seed=8000 + len(cases), dev=dev, timed=False,
+                ))
+        if kind == "noisy" and tag == "safe_adaptive_signed" and not quick:
+            # an expert's wi / wg and wo of kimi-k2 at its capacity of 8 rows
+            # (moe_expert_chips; seeds of their own)
+            for K, N in KIMI_SHAPES[0][0], KIMI_SHAPES[1][0]:
+                cases.append(run_case(
+                    kind, f"{tag}/{KIMI}", 8, K, N, layer_scaled_spec(base, K), cfg,
+                    sparse=False, skip=True, seed=6500 + len(cases), dev=dev, timed=True,
                 ))
         if kind == "noisy":
             seed = mma_edge_cases(kind, cases, tag, base, cfg, seed, dev, quick)
@@ -1072,22 +1150,24 @@ def prefill_fields(runner, adm, attention_admissions):
         prefill_capture_seconds={str(b): g.capture_seconds for b, g in sorted(graphs.items())},
         prefill_pool_bytes={str(b): g.pool_bytes for b, g in sorted(graphs.items())},
         prefill_seconds=sum(replayed), prefill_admissions=len(replayed),
+        prefill_seconds_by_bucket={str(b): v for b, v in sorted(adm.seconds.items())},
         prefill_ms_median=1e3 * statistics.median(replayed) if replayed else None,
         capturing_admission_seconds={str(b): v for b, v in sorted(adm.capturing.items())},
     )
 
 
-def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check, plan=None):
+def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check, plan=None, share=None):
     """``counter``: the launch counter (or, for a planned chip, the
     ``PLANNED_CALLS`` datapath) that must count every projection of every
-    forward; every other counter must stay at 0."""
+    forward; every other counter must stay at 0.  ``share``: the
+    ``ExpertShare`` an MoE model's params hold."""
     t0 = time.perf_counter()
-    eng = ServingEngine(cfg, params, max_batch=4, max_seq=256, crossbar=crossbar, plan=plan, device=dev)
+    eng = ServingEngine(
+        cfg, params, max_batch=4, max_seq=256, crossbar=crossbar, plan=plan, share=share, device=dev,
+    )
     torch.cuda.synchronize()
     program_s = time.perf_counter() - t0
-    # crossbar projections per forward: a layer-stacked artifact serves once
-    # per layer, a 2-D one (the tied head) once
-    n_proj = sum(a.shape[0] if a.stacked else 1 for a in eng.programmed.by_name.values())
+    n_proj = eng.programmed.calls_per_forward
     n_scan = sum(spec.repeats * spec.kinds.count("slstm") for spec in cfg.stages)
     prompts = make_requests(cfg, seed)
     reset_crossbar_misses()
@@ -1159,7 +1239,7 @@ def store_round_trip(phase, cfg, params, eng, prompts, tokens, dev):
         require(report.ok, f"{phase}: the saved chip fails verify_store: {report.summary()}")
         t0 = time.perf_counter()
         eng2 = ServingEngine(
-            cfg, params, max_batch=4, max_seq=256, device=dev, restore_artifacts=d,
+            cfg, params, max_batch=4, max_seq=256, device=dev, restore_artifacts=d, share=eng.share,
             crossbar=CrossbarMode(enabled=True, strict=True, fast=crossbar.fast, device=crossbar.device),
         )
         restore_s = time.perf_counter() - t0
@@ -1264,6 +1344,305 @@ def serve_dense(phase, arch, dev, seed, quick):
     return launches
 
 
+def kimi_config(layers):
+    """kimi-k2-1t-a32b at full width cut to ``layers`` layers: its dense
+    first layer, then ``layers - 1`` MoE layers."""
+    cfg = get_config(KIMI)
+    dense, moe = cfg.stages
+    return dataclasses.replace(
+        cfg, n_layers=layers, stages=(dense, dataclasses.replace(moe, repeats=layers - dense.repeats)),
+    )
+
+
+def moe_vmm_calls(cfg, share):
+    """VMM launches one forward makes, from the config: 4 attention
+    projections a layer; a dense FFN's fused wi and its wo; an MoE FFN's
+    router, wi / wg / wo of each expert of the share and of the shared
+    expert (a GLU FFN); and the untied head."""
+    ffn = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    n = 0 if cfg.tie_embeddings else 1
+    for spec in cfg.stages:
+        for moe in spec.moe:
+            per_ffn = (1 + ffn * (share.local_experts(cfg) + (1 if cfg.moe_shared_experts else 0))) if moe else 2
+            n += spec.repeats * (4 + per_ffn)
+    return n
+
+
+def cut_stage(tree, si, keep):
+    """``tree`` (params or an artifact tree) with stage ``si``'s stacked
+    leaves cut to their first ``keep`` layers (views, no copies)."""
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        return t.map_arrays(lambda a: a[:keep]) if isinstance(t, tprog.ProgrammedLinear) else t[:keep]
+
+    return {k: (cut(v) if k == f"stage{si}" else v) for k, v in tree.items()}
+
+
+def routed_reference_check(cfg, params, eng, dev, share):
+    """``reference_check`` of an MoE share, and how the chip's routing
+    compares with the plain-matmul model's on that prompt: for each MoE
+    layer, the share of tokens whose top-k sets agree and of (token,
+    expert) choices both made, and for each model the router logits'
+    distinct values a row (of ``moe_experts``), their spread and the share
+    of rows with a tie across the top-k cut."""
+    seen, logit_stats = [], []
+    real = moe_mod.route_from_logits
+
+    def spy(logits, cfg_, dtype):
+        out = real(logits, cfg_, dtype)
+        seen.append(out[0].reshape(-1, cfg_.moe_top_k).sort(dim=-1).values)
+        rows = logits.reshape(-1, logits.shape[-1]).float()
+        top = torch.sort(rows, dim=-1, descending=True).values
+        logit_stats.append(dict(
+            distinct_per_row=sum(len(torch.unique(r)) for r in rows) / rows.shape[0],
+            std=float(rows.std()),
+            rows_tied_at_cut=float((top[:, cfg_.moe_top_k - 1] == top[:, cfg_.moe_top_k]).float().mean()),
+        ))
+        return out
+
+    moe_mod.route_from_logits = spy
+    try:
+        with expert_share(share):
+            rel = reference_check(cfg, params, eng, dev)[0]
+    finally:
+        moe_mod.route_from_logits = real
+    n = len(seen) // 2  # the chip's forward, then the plain one
+    routing = []
+    for i, (chip_idx, plain_idx) in enumerate(zip(seen[:n], seen[n:])):
+        shared = (chip_idx[:, :, None] == plain_idx[:, None, :]).any(dim=-1).float().mean()
+        routing.append(dict(
+            top_k_sets_equal=float((chip_idx == plain_idx).all(dim=-1).float().mean()),
+            choices_shared=float(shared), chip_logits=logit_stats[i], plain_logits=logit_stats[n + i],
+        ))
+    return rel, routing
+
+
+def serve_kimi(dev, seed, quick):
+    """The rank-0 share of kimi-k2's 8-way expert-parallel deployment at
+    full width and depth 3 (``KIMI_LAYERS``), from an ideal chip the engine
+    programs: every projection on the fast kernel, one launch an expert's
+    projection (``moe_vmm_calls`` a forward, asserted), the logits within
+    ``KIMI_REL_L2_MAX`` of the plain-matmul model of the same share, a
+    store round trip on a copy cut to the dense layer and one MoE layer (a
+    4-D expert-bank artifact written and restored), then
+    ``tick_profile_kimi``, ``graph_vs_eager_kimi`` and
+    ``prefill_vs_eager_kimi``.  Returns the serving run's launch counts."""
+    cfg = kimi_config(2 if quick else KIMI_LAYERS)
+    t0 = time.perf_counter()
+    params = model_lib.init_model(cfg, seed=seed, device=dev, share=KIMI_SHARE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = sum(t.numel() * t.element_size() for _, t in tprog._walk(params)) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ideal = CrossbarMode(enabled=True, strict=True)
+    line, launches, eng = serve_phase("serve_kimi", cfg, params, ideal, "fast", dev, seed + 1, False, share=KIMI_SHARE)
+    want = moe_vmm_calls(cfg, KIMI_SHARE)
+    forwards = line["prefills"] + line["decode_ticks"]
+    require(
+        line["projections"] == want and launches["fast"] == want * forwards,
+        f"serve_kimi: {launches['fast']} fast-kernel launches of {line['projections']} projections in "
+        f"{forwards} forwards, expected {want} x {forwards}",
+    )
+    lo = KIMI_SHARE.first_expert(cfg)
+    line["logits_rel_l2_vs_plain_matmul"], line["routing_vs_plain_matmul"] = routed_reference_check(
+        cfg, params, eng, dev, KIMI_SHARE,
+    )
+    line.update(
+        share=dict(rank=KIMI_SHARE.rank, ranks=KIMI_SHARE.ranks, experts=[lo, lo + KIMI_SHARE.local_experts(cfg) - 1],
+                   of=cfg.moe_experts, top_k=cfg.moe_top_k, capacity_at_decode=moe_mod._capacity(4, cfg, 48)),
+        widths=dict(d_model=cfg.d_model, heads=cfg.n_heads, head_dim=cfg.head_dim, kv_heads=cfg.n_kv_heads,
+                    dense_d_ff=cfg.d_ff, expert_d_ff=cfg.moe_d_ff, shared_experts=cfg.moe_shared_experts),
+        vmm_launches_per_forward=want, rel_l2_gate=KIMI_REL_L2_MAX, init_seconds=init_s, param_gb=param_gb,
+        chip_gb=sum(
+            getattr(a, f).numel() * getattr(a, f).element_size()
+            for a in eng.programmed.by_name.values() for f in tprog.ARTIFACT_ARRAY_FIELDS
+            if getattr(a, f) is not None
+        ) / 1e9,
+    )
+    require(
+        line["logits_rel_l2_vs_plain_matmul"] < KIMI_REL_L2_MAX,
+        f"serve_kimi: the chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain "
+        f"matmul model, gate {KIMI_REL_L2_MAX}",
+    )
+    # the store round trip on the dense layer and one MoE layer
+    cut_cfg = kimi_config(KIMI_STORE_LAYERS)
+    keep = cut_cfg.stages[1].repeats
+    cut_params = cut_stage(params, 1, keep)
+    cut_chip = tprog.ProgrammedModel(cut_stage(eng.programmed.artifacts, 1, keep))
+    require(cut_chip.by_name["stage1/b0/ffn/wi"].w_codes.ndim == 4, "serve_kimi: the cut chip has no expert bank")
+    cut_eng = ServingEngine(
+        cut_cfg, cut_params, max_batch=4, max_seq=256, device=dev, share=KIMI_SHARE,
+        crossbar=dataclasses.replace(ideal, programmed=cut_chip),
+    )
+    prompts = make_requests(cfg, seed + 1)
+    cut_tokens = [r.generated for r in drive(cut_eng, prompts, max_new=16)[0]]
+    line["store_round_trip"] = dict(
+        layers=cut_cfg.n_layers, width="full", expert_bank_shape=list(cut_chip.by_name["stage1/b0/ffn/wi"].shape),
+        why="a copy of the served chip cut in depth to its dense layer and one MoE layer",
+        **store_round_trip("serve_kimi", cut_cfg, cut_params, cut_eng, prompts, cut_tokens, dev),
+    )
+    del cut_eng, cut_chip, cut_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(line)
+    replayed_tick_checks("kimi", eng, cfg, seed, {"fast_kernel": want}, prefill=True)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_expert_chips(dev, seed):
+    """One full-width kimi-k2 MoE FFN of the rank share of EP48 (8 experts)
+    programmed on NOISY_DEVICE with ``expert_chips`` (one chip identity an
+    expert), at ``EXPERT_CHIPS_M`` tokens: every noisy-kernel call's output
+    codes ``torch.equal`` to its plain version on the same inputs (each
+    expert's wi / wg / wo, the router, the shared expert), the FFN replayed
+    from a CUDA graph ``torch.equal`` to eager; the same slab programmed on
+    two chip identities differs, and on expert 0's identity reproduces the
+    bank's expert 0.  Returns the launch counts of the eager runs."""
+    cfg, share = get_config(KIMI), EXPERT_CHIPS_SHARE
+    n_local = share.local_experts(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ffn = moe_mod.init_moe(
+        cfg, 1, lambda shape, scale: model_lib._normal(gen, shape, scale, torch.bfloat16, dev), share,
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chip = tprog.program_model({"ffn": ffn}, device_cfg=NOISY_DEVICE, expert_chips=tuple(range(n_local)), device=dev)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    mode = CrossbarMode(enabled=True, strict=True, device=NOISY_DEVICE, programmed=chip)
+    layer = {k: v[0] for k, v in ffn.items()}
+    layer_map = chip.stage_layer_maps("ffn")[0]
+
+    def run(x):
+        with crossbar_mode(mode), chip.bind(), tprog._push_bind_map(layer_map), tprog.name_scope("ffn"):
+            return moe_mod.moe_ffn(layer, x, cfg, share=share)
+
+    real = tprog.noisy_vmm_cuda
+    calls = []
+
+    def spy(xq, g_eff, spec, adc_cfg=None, skip_zero_planes=True):
+        y = real(xq, g_eff, spec, adc_cfg=adc_cfg, skip_zero_planes=skip_zero_planes)
+        calls.append((xq.clone(), g_eff, spec, adc_cfg, y.clone()))
+        return y
+
+    rng = np.random.default_rng(seed)
+    cases, launches = [], {k: 0 for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
+    for M in EXPERT_CHIPS_M:
+        x = torch.from_numpy(rng.normal(size=(1, M, cfg.d_model)).astype(np.float32)).to(dev, torch.bfloat16)
+        calls.clear()
+        kvmm.reset_counters()
+        tprog.noisy_vmm_cuda = spy
+        try:
+            eager = run(x)
+        finally:
+            tprog.noisy_vmm_cuda = real
+        torch.cuda.synchronize()
+        counts = dict(kvmm.LAUNCHES)
+        for k, n in counts.items():
+            launches[k] += n
+        want = 1 + 3 * (n_local + 1)  # router, wi / wg / wo of each expert and the shared one
+        equal = [bool(torch.equal(y, noisy_vmm_plain(xq, g, spec, adc_cfg))) for xq, g, spec, adc_cfg, y in calls]
+        eager_ms = cuda_ms(lambda: run(x), reps=3, warmup=1)
+        # the FFN captured as one CUDA graph on a static copy of x
+        static = x.clone()
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            run(static)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            replayed = run(static)
+        graph.replay()
+        torch.cuda.synchronize()
+        case = dict(
+            M=M, capacity=moe_mod._capacity(M, cfg, n_local), noisy_launches=counts["noisy"], expected=want,
+            noisy_calls_equal_plain=sum(equal), noisy_calls=len(equal), replay_equal_eager=bool(torch.equal(replayed, eager)),
+            finite=bool(torch.isfinite(eager.float()).all()), eager_ms=eager_ms,
+            replay_ms=cuda_ms(graph.replay, reps=5, warmup=1),
+        )
+        cases.append(case)
+        del graph, replayed
+        require(
+            counts == {"fast": 0, "planes": 0, "noisy": want} and len(equal) == want and all(equal)
+            and case["replay_equal_eager"] and case["finite"],
+            f"moe_expert_chips: {case}, launches {counts}",
+        )
+    kvmm.reset_counters()
+    w = ffn["wi"][0, 0]
+    one = tprog.program_layer(w, device_cfg=NOISY_DEVICE.replace(chip=0))
+    two = tprog.program_layer(w, device_cfg=NOISY_DEVICE.replace(chip=1))
+    bank = chip.by_name["ffn/wi"]
+    line = dict(
+        phase="moe_expert_chips", arch=KIMI, share=dict(rank=share.rank, ranks=share.ranks, experts=n_local),
+        device=dataclasses.asdict(NOISY_DEVICE), expert_chips=list(range(n_local)), program_seconds=program_s,
+        chip_gb=sum(
+            getattr(a, f).numel() * getattr(a, f).element_size()
+            for a in chip.by_name.values() for f in tprog.ARTIFACT_ARRAY_FIELDS if getattr(a, f) is not None
+        ) / 1e9,
+        identities_differ=not torch.equal(one.g_eff, two.g_eff),
+        identity_reproduces_bank=bool(torch.equal(one.g_eff, bank.g_eff[0, 0])),
+        cases=cases, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    emit(line)
+    require(
+        line["identities_differ"] and line["identity_reproduces_bank"],
+        f"moe_expert_chips: chip identities {line}",
+    )
+    del chip, ffn, one, two, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_dispatch_card_vs_cpu(dev, seed):
+    """Routing, slots and the combine on the card against the CPU from the
+    same router logits (float32 on a grid of 1/64, as dequantised codes
+    lie: ties are real) at kimi-k2's 384 experts and top 8, for the rank-0
+    share of EP8 (48 experts, 8 slots each) at a decode tick (4 rows) and
+    a 256-token bucket: top-k ids, gates and probabilities, the slot tables
+    and the combined bf16 output of the same expert outputs, each
+    ``torch.equal``."""
+    cfg, share = get_config(KIMI), KIMI_SHARE
+    n_local, lo = share.local_experts(cfg), share.first_expert(cfg)
+    rng = np.random.default_rng(seed)
+    cases = []
+    for n in (4, 256):
+        logits = (np.round(rng.normal(size=(n, cfg.moe_experts)) * 64) / 64).astype(np.float32)
+        cap = moe_mod._capacity(n, cfg, n_local)
+        expert_out = rng.normal(size=(n_local * cap, cfg.d_model)).astype(np.float32)
+        got = []
+        for d in (torch.device("cpu"), dev):
+            idx, gates, probs = moe_mod.route_from_logits(torch.from_numpy(logits).to(d), cfg, torch.bfloat16)
+            tok_slot, gate_slot, token_slots = moe_mod.slot_tables(idx, gates, n_local, cap, lo)
+            out = torch.from_numpy(expert_out).to(d, torch.bfloat16)
+            y = moe_mod.combine(out * gate_slot[:, None], token_slots)
+            got.append(dict(
+                idx=idx, gates=gates, probs=probs, tok_slot=tok_slot, gate_slot=gate_slot,
+                token_slots=token_slots, combined=y,
+            ))
+        cpu, card = got
+        equal = {k: bool(torch.equal(cpu[k], card[k].cpu())) for k in cpu}
+        sorted_p = torch.sort(cpu["probs"], dim=-1, descending=True).values
+        cases.append(dict(
+            tokens=n, capacity=cap, equal=equal,
+            ties_at_the_cut=int((sorted_p[:, cfg.moe_top_k - 1] == sorted_p[:, cfg.moe_top_k]).sum()),
+            local_assignments=int(((cpu["idx"] >= lo) & (cpu["idx"] < lo + n_local)).sum()),
+            kept=int((cpu["token_slots"] < n_local * cap).sum()),
+        ))
+    line = dict(phase="moe_dispatch_card_vs_cpu", arch=KIMI, share=[share.rank, share.ranks], cases=cases,
+                all_equal=all(all(c["equal"].values()) for c in cases))
+    emit(line)
+    require(line["all_equal"], f"moe_dispatch_card_vs_cpu: {cases}")
+    require(any(c["kept"] < c["local_assignments"] for c in cases), "moe_dispatch_card_vs_cpu: nothing dropped")
+    return line
+
+
 def tick_profile(phase, eng, prompts, ticks=3):
     """Where one decode tick goes: ``ticks`` steady decode ticks of a full
     slot pool (graph replays) in one ``profile_window``."""
@@ -1355,7 +1734,7 @@ def profile_window(phase, run, ticks):
         line["kernels"].append(dict(
             name=name, counter=counter, entries=[k[0][:80] for k in mine],
             ms_per_tick=sum(k[1] for k in mine) / ticks, calls_per_tick=sum(k[2] for k in mine) / ticks,
-            credited_per_tick=n / ticks,
+            credited_per_tick=n / ticks, share_of_busy=(sum(k[1] for k in mine) / busy_ms if busy_ms else None),
         ))
     line["profiler_sees_graph_kernels"] = all(k["calls_per_tick"] > 0 for k in line["kernels"])
     short = {k["name"]: k["credited_per_tick"] - k["calls_per_tick"] for k in line["kernels"]}
@@ -2806,6 +3185,11 @@ def main() -> int:
     # gemma2-9b, minitron-4b and starcoder2-3b at full width from ideal chips
     for i, (phase, arch) in enumerate(DENSE_SERVES):
         by_path[phase] = serve_dense(phase, arch, dev, args.seed + 10 * (i + 1), args.quick)
+    # kimi-k2's rank-0 share of EP8 at full width; an MoE FFN of 8 experts on
+    # a noisy device with one chip identity an expert; dispatch card vs CPU
+    by_path["serve_kimi"] = serve_kimi(dev, args.seed + 50, args.quick)
+    by_path["moe_expert_chips"] = moe_expert_chips(dev, args.seed + 51)
+    moe_dispatch_card_vs_cpu(dev, args.seed + 52)
     # kernel launches only: the planned datapaths run no kernel of ours
     launches = {k: sum(n[k] for n in by_path.values()) for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
     require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")

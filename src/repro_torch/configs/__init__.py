@@ -14,5 +14,8 @@ from repro_torch.configs import smollm_360m  # noqa: F401
 from repro_torch.configs import gemma2_9b  # noqa: F401
 from repro_torch.configs import minitron_4b  # noqa: F401
 from repro_torch.configs import starcoder2_3b  # noqa: F401
+from repro_torch.configs import kimi_k2_1t  # noqa: F401
 
-ALL_ARCHS = ["xlstm-350m", "smollm-360m", "gemma2-9b", "minitron-4b", "starcoder2-3b"]
+ALL_ARCHS = [
+    "xlstm-350m", "smollm-360m", "gemma2-9b", "minitron-4b", "starcoder2-3b", "kimi-k2-1t-a32b",
+]

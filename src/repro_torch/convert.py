@@ -4,6 +4,11 @@ The JAX package's params pytree, pulled to the host as nested dicts of numpy
 arrays, becomes the port's params — same names, so programmed artifacts bind
 unchanged.  bfloat16 arrives as an ``ml_dtypes`` numpy dtype that
 ``torch.from_numpy`` refuses; it is widened exactly through its bit pattern.
+
+An MoE model's expert banks — ``wi`` / ``wg`` / ``wo`` leaves of shape (L, E,
+K, N), and the artifacts programmed from them — can be carried as one
+``models.moe.ExpertShare``'s slice of the expert axis, so that a device
+receives only the experts it holds.
 """
 from __future__ import annotations
 
@@ -14,6 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch.device.programmed import ARTIFACT_ARRAY_FIELDS, ProgrammedLinear
+from repro_torch.models.moe import ExpertShare
+
+_BANKS = ("wi", "wg", "wo")
 
 
 def tensor_from_numpy(arr, device="cuda", dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -26,20 +34,49 @@ def tensor_from_numpy(arr, device="cuda", dtype: Optional[torch.dtype] = None) -
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
-def params_from_numpy(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None) -> Any:
+def expert_slice(n_experts: int, share: ExpertShare) -> slice:
+    """The experts of ``share`` among ``n_experts`` (which must split evenly)."""
+    if n_experts % share.ranks:
+        raise ValueError(f"{n_experts} experts do not split over {share.ranks} ranks")
+    n = n_experts // share.ranks
+    return slice(share.rank * n, (share.rank + 1) * n)
+
+
+def params_from_numpy(
+    tree: Any, device="cuda", dtype: Optional[torch.dtype] = None, share: Optional[ExpertShare] = None,
+) -> Any:
     """Nested dicts of numpy arrays -> nested dicts of tensors on ``device``
-    (floating leaves cast to ``dtype`` when given)."""
-    if isinstance(tree, dict):
-        return {str(k): params_from_numpy(v, device, dtype) for k, v in tree.items()}
-    floating = np.asarray(tree).dtype.kind == "f" or np.asarray(tree).dtype.name == "bfloat16"
-    return tensor_from_numpy(tree, device, dtype if floating else None)
+    (floating leaves cast to ``dtype`` when given).  With ``share`` every
+    expert bank keeps only the share's experts (sliced before the copy)."""
+
+    def carry(node, name: str):
+        if isinstance(node, dict):
+            return {str(k): carry(v, str(k)) for k, v in node.items()}
+        arr = np.asarray(node)
+        if share is not None and name in _BANKS and arr.ndim == 4:
+            arr = arr[:, expert_slice(arr.shape[1], share)]
+        floating = arr.dtype.kind == "f" or arr.dtype.name == "bfloat16"
+        return tensor_from_numpy(arr, device, dtype if floating else None)
+
+    return carry(tree, "")
 
 
-def artifacts_from_numpy(arrays: dict, template: ProgrammedLinear, device="cuda") -> ProgrammedLinear:
+def artifacts_from_numpy(
+    arrays: dict, template: ProgrammedLinear, device="cuda", share: Optional[ExpertShare] = None,
+) -> ProgrammedLinear:
     """One artifact from ``{field: numpy array}`` plus a template's static
-    data (fields absent from ``arrays`` become None)."""
-    fields = {
-        f: (tensor_from_numpy(arrays[f], device) if arrays.get(f) is not None else None)
-        for f in ARTIFACT_ARRAY_FIELDS
-    }
-    return dataclasses.replace(template, **fields)
+    data (fields absent from ``arrays`` become None).  With ``share`` an
+    expert bank's artifact (a 4-D ``w_codes``, every array field led by its
+    (L, E) axes) keeps the share's experts, its per-layer tuples of
+    per-expert reports likewise."""
+    arrays = {f: arrays.get(f) for f in ARTIFACT_ARRAY_FIELDS}
+    aux = {}
+    if share is not None and np.ndim(arrays["w_codes"]) == 4:
+        sl = expert_slice(np.shape(arrays["w_codes"])[1], share)
+        arrays = {f: (np.asarray(a)[:, sl] if a is not None else None) for f, a in arrays.items()}
+        aux = {
+            k: tuple(per_layer[sl] for per_layer in getattr(template, k))
+            for k in ("report", "repair") if getattr(template, k) is not None
+        }
+    fields = {f: (tensor_from_numpy(a, device) if a is not None else None) for f, a in arrays.items()}
+    return dataclasses.replace(template, **fields, **aux)

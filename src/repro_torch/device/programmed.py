@@ -555,7 +555,9 @@ class ProgrammedModel:
 
     def stage_layer_maps(self, key: str) -> Optional[List[Dict[str, ProgrammedLinear]]]:
         """Per-layer bind maps of a layer-stacked stage: entry ``r`` maps the
-        canonical names under ``key`` to layer ``r``'s artifact views.  Built
+        canonical names under ``key`` to layer ``r``'s artifact views
+        (``(K, N)``, or ``(E, K, N)`` for an expert bank, which the MoE
+        FFN slices per expert).  Built
         once and kept, so a forward binds a dict instead of re-slicing every
         artifact at every step.  Non-stacked artifacts under the stage are
         left out (they cannot be sliced per layer)."""
@@ -584,6 +586,16 @@ class ProgrammedModel:
     @property
     def n_compiled(self) -> int:
         return len(self.by_name)
+
+    @property
+    def calls_per_forward(self) -> int:
+        """Projections a forward serves from this chip: an expert bank (L, E,
+        K, N) once an expert a layer, a layer-stacked artifact once a layer,
+        a 2-D one (a head) once."""
+        return sum(
+            a.shape[0] * a.shape[1] if a.w_codes.ndim == 4 else a.shape[0] if a.stacked else 1
+            for a in self.by_name.values()
+        )
 
     @property
     def emitted_names(self) -> frozenset:
@@ -675,6 +687,7 @@ def program_model(
     fast: bool = True,
     tie_lm_head: bool = False,
     leaf_filter: Optional[Callable[[Tuple[str, ...], Any], bool]] = None,
+    expert_chips: Optional[Tuple[int, ...]] = None,
     plan: Optional[ChipPlan] = None,
     device="cuda",
 ) -> ProgrammedModel:
@@ -683,10 +696,13 @@ def program_model(
     there).  ``tie_lm_head=True`` additionally compiles the transpose of every
     2-D ``tokens`` embedding under the embedding's own name — the (D, V)
     artifact shares the key with the (V, D) leaf and shape-checked lookup keeps
-    the two apart.  ``plan`` (a ``core.planner.ChipPlan``, e.g. from
-    ``planner.plan_model`` on the same params) compiles each leaf under the
-    ``LayerPlan`` of its canonical name; leaves it does not cover compile
-    homogeneous."""
+    the two apart.  ``expert_chips`` gives every 4-D expert bank one chip
+    identity per expert (``program_layer(chips=)`` on its expert axis), so
+    each expert's slab draws its own device perturbations; 2-D and 3-D
+    leaves keep the base device.  ``plan`` (a ``core.planner.ChipPlan``,
+    e.g. from ``planner.plan_model`` on the same params) compiles each leaf
+    under the ``LayerPlan`` of its canonical name; leaves it does not cover
+    compile homogeneous."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("program_model(device='cuda') needs a CUDA device; pass device='cpu'")
@@ -699,6 +715,7 @@ def program_model(
         w = leaf.to(device)
         art = program_layer(
             w.T.contiguous() if action == "transpose" else w, spec, device_cfg, adc_cfg, fast=fast,
+            chips=(tuple(expert_chips) if expert_chips is not None and leaf.ndim == 4 else None),
             plan=(plan.layer_for("/".join(path)) if plan is not None else None),
         )
         node = artifacts

@@ -1,9 +1,9 @@
 """Model assembly: embed -> stages (loop over stacked layers) -> norm ->
 logits (counterpart of ``repro.models.model`` for attention and xLSTM
-stages).
+stages, with dense or MoE FFNs).
 
 Entry points:
-  * ``init_model(cfg, seed, device, dtype)`` -> params (nested dicts)
+  * ``init_model(cfg, seed, device, dtype, share)`` -> params (nested dicts)
   * ``forward(params, cfg, tokens)`` -> logits (B, S, V)
   * ``init_cache(cfg, B, S, dtype, device)`` -> cache
   * ``cache_axes(cfg)`` -> the cache's logical axes, leaf by leaf
@@ -13,7 +13,9 @@ Entry points:
 Layers are stacked per stage on a leading axis (the names are the artifact
 keys); a stage runs as a Python loop over that axis.  Caches are updated in
 place and returned.  Nothing here needs gradients: the entry points run under
-``torch.no_grad``.
+``torch.no_grad``.  The expert banks of an MoE config may hold one rank's
+share of the experts (``init_model(share=)``); its MoE layers then run under
+``moe.expert_share(share)``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, StageSpec
 from repro_torch.device.programmed import _push_bind_map, name_scope
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import current_crossbar, embed, lm_head, mlp, rms_norm
 
@@ -55,12 +58,15 @@ def _require_ported(kind: str) -> None:
 
 
 def _require_ported_config(cfg: ModelConfig) -> None:
-    """Refuse what the blocks would otherwise run wrong or fail on: a config
-    with MoE FFNs or a non-token front end (a parameter tree carried across
-    from the reference never passes through ``init_model``, so every entry
-    point checks)."""
-    if cfg.moe_experts or any(any(spec.moe) for spec in cfg.stages):
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
+    """Refuse what the blocks would otherwise run wrong or fail on: a stage
+    kind that is not ported (mamba), multi-head latent attention or a
+    non-token front end (a parameter tree carried across from the reference
+    never passes through ``init_model``, so every entry point checks)."""
+    for spec in cfg.stages:
+        for kind in spec.kinds:
+            _require_ported(kind)
+    if cfg.kv_lora_rank:
+        raise NotImplementedError(f"{cfg.name}: multi-head latent attention is not ported yet")
     if cfg.frontend != "token":
         raise NotImplementedError(f"{cfg.name}: front end {cfg.frontend!r} is not ported yet")
 
@@ -74,14 +80,18 @@ def _normal(gen, shape, scale: float, dtype, device) -> torch.Tensor:
     return (w * scale).to(dtype)
 
 
-def _init_block(cfg: ModelConfig, kind: str, repeats: int, gen, dtype, device) -> Dict[str, Any]:
+def _init_block(
+    cfg: ModelConfig, kind: str, use_moe: bool, repeats: int, gen, dtype, device,
+    share: moe_mod.ExpertShare = moe_mod.SINGLE_DEVICE,
+) -> Dict[str, Any]:
     """One block position of a stage, its ``repeats`` layers stacked on a
     leading axis.  Matrices draw normal(0, fan_in**-0.5) except the xLSTM
     gate projection (0.02) and recurrent matrices (dh**-0.5), as in the
     reference; norm scales are zero (``rms_norm`` multiplies by ``1 +
     scale``).  xLSTM blocks carry their own projections and have no FFN.  A
     post-norm config (gemma2) adds ``norm1_post`` after the mixer and
-    ``norm2_post`` after the FFN."""
+    ``norm2_post`` after the FFN.  ``use_moe`` makes the FFN an MoE FFN
+    (``moe.init_moe``: the experts of ``share``)."""
     _require_ported(kind)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L = repeats
@@ -110,19 +120,28 @@ def _init_block(cfg: ModelConfig, kind: str, repeats: int, gen, dtype, device) -
     block: Dict[str, Any] = {"norm1": zeros(), "mixer": mixer}
     if cfg.post_norm:
         block["norm1_post"] = zeros()
-    if cfg.d_ff and kind not in _XLSTM_KINDS:
-        wide = 2 * cfg.d_ff if cfg.mlp_kind in ("swiglu", "geglu") else cfg.d_ff
+    if (cfg.d_ff or use_moe) and kind not in _XLSTM_KINDS:
         block["norm2"] = zeros()
-        block["ffn"] = {"wi": mat(d, wide), "wo": mat(cfg.d_ff, d)}
+        if use_moe:
+            block["ffn"] = moe_mod.init_moe(
+                cfg, L, lambda shape, scale: _normal(gen, shape, scale, dtype, device), share
+            )
+        else:
+            wide = 2 * cfg.d_ff if cfg.mlp_kind in ("swiglu", "geglu") else cfg.d_ff
+            block["ffn"] = {"wi": mat(d, wide), "wo": mat(cfg.d_ff, d)}
         if cfg.post_norm:
             block["norm2_post"] = zeros()
     return block
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None) -> Dict[str, Any]:
+def init_model(
+    cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None, share: Optional[moe_mod.ExpertShare] = None,
+) -> Dict[str, Any]:
     """Random parameters from ``seed`` (own generator on ``device``), in
     ``cfg.param_dtype`` unless ``dtype`` is given.  Same tree, names and init
-    scales as the reference; the draws themselves differ."""
+    scales as the reference; the draws themselves differ.  Under ``share``
+    (a ``moe.ExpertShare``) the expert banks hold that share's experts only;
+    everything else is the whole model's."""
     _require_ported_config(cfg)
     device = require_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
@@ -133,7 +152,10 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None) -> Di
     }
     for si, spec in enumerate(cfg.stages):
         params[f"stage{si}"] = {
-            f"b{i}": _init_block(cfg, kind, spec.repeats, gen, dtype, device)
+            f"b{i}": _init_block(
+                cfg, kind, bool(spec.moe[i]) and cfg.moe_experts > 0, spec.repeats, gen, dtype, device,
+                share or moe_mod.SINGLE_DEVICE,
+            )
             for i, kind in enumerate(spec.kinds)
         }
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
@@ -169,7 +191,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, dev
 def cache_axes(cfg: ModelConfig):
     """Logical-axis tree parallel to ``init_cache``: cache_batch, cache_seq
     (``serving.kvcache`` pages along it), kv_heads / heads.  Refuses what
-    ``init_cache`` refuses (multi-head latent attention, mamba, MoE, an
+    ``init_cache`` refuses (multi-head latent attention, mamba, an
     embedding front end)."""
     _require_ported_config(cfg)
 
@@ -209,7 +231,9 @@ def _layer(tree: Any, r: int) -> Any:
     return tree[r]
 
 
-def _apply_block(params, x, cfg: ModelConfig, kind: str, positions, cache_entry=None, decode_pos=None):
+def _apply_block(
+    params, x, cfg: ModelConfig, kind: str, use_moe: bool, positions, cache_entry=None, decode_pos=None
+):
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     with name_scope("mixer"):
         if kind == "mlstm":
@@ -230,7 +254,10 @@ def _apply_block(params, x, cfg: ModelConfig, kind: str, positions, cache_entry=
     if "norm2" in params:
         h = rms_norm(x, params["norm2"], cfg.norm_eps)
         with name_scope("ffn"):
-            h = mlp(params["ffn"], h, cfg.mlp_kind)
+            if use_moe:
+                h = moe_mod.moe_ffn(params["ffn"], h, cfg)
+            else:
+                h = mlp(params["ffn"], h, cfg.mlp_kind)
         if cfg.post_norm:
             h = rms_norm(h, params["norm2_post"], cfg.norm_eps)
         x = x + h
@@ -260,7 +287,10 @@ def _run_stage(
             for i, kind in enumerate(spec.kinds):
                 entry = cl[f"b{i}"] if cl is not None else None
                 with name_scope(f"b{i}"):
-                    x, _ = _apply_block(lp[f"b{i}"], x, cfg, kind, positions, entry, decode_pos)
+                    x, _ = _apply_block(
+                        lp[f"b{i}"], x, cfg, kind, bool(spec.moe[i]) and cfg.moe_experts > 0,
+                        positions, entry, decode_pos,
+                    )
     return x, cache_stage
 
 

@@ -1,11 +1,12 @@
 """Batched serving, split into a model runner and a slot scheduler
-(counterpart of ``repro.serving.engine``; mesh serving and ``expert_chips``
-fleets are not ported and their arguments are not accepted).
+(counterpart of ``repro.serving.engine``; mesh serving is not ported and its
+arguments are not accepted).
 
 ``ModelRunner`` owns the model half: the params, the programmed crossbar chip
 (program-once at construction, optionally under a ``core.planner.ChipPlan``
-and a ``spare_cols`` repair budget, or restored from an artifact store that
-first passes ``analysis.verify_store``), the chip's lifecycle (``age`` /
+and a ``spare_cols`` repair budget, with one chip identity per expert of an
+MoE model's banks under ``expert_chips``, or restored from an artifact store
+that first passes ``analysis.verify_store``), the chip's lifecycle (``age`` /
 ``health_check`` / ``compensate`` / ``hot_swap`` / ``refresh``), prefill /
 decode and sampling.  ``ServingEngine`` is the synchronous slot scheduler on
 top: a fixed pool of ``max_batch`` cache slots; a pending request is
@@ -27,6 +28,10 @@ the addresses it was captured with, so every swap of the served chip
 (``ModelRunner._rebind``) drops them all and the next tick or admission
 captures afresh; KV caches, slots and pending requests are untouched, so
 in-flight requests go on at the next tick.
+
+An MoE model may be served as one rank's share of an expert-parallel
+deployment (``share=``, a ``models.moe.ExpertShare``; its params hold that
+share's experts): every forward of the runner runs under it.
 
 Generation is deterministic given (seed, admission order).  The decode tick
 returns host float32 logits — one device synchronisation per tick.
@@ -51,6 +56,7 @@ from repro_torch.device import programmed as prog_mod
 from repro_torch.device.models import wants_repair
 from repro_torch.models import layers as layers_mod
 from repro_torch.models import model as model_lib
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import CrossbarMode, crossbar_mode
 from repro_torch.serving.graphs import DecodeGraph, PrefillBuffers, PrefillGraph
 
@@ -99,7 +105,9 @@ class ModelRunner:
         spare_cols: Optional[int] = None,
         restore_artifacts: Optional[str] = None,
         verify_coverage: bool = True,
+        expert_chips=None,
         plan: Optional[ChipPlan] = None,
+        share: Optional[moe_mod.ExpertShare] = None,
         device="cuda",
     ):
         self.device = model_lib.require_device(device)
@@ -109,6 +117,12 @@ class ModelRunner:
         self.temperature = temperature
         self._sample_gen = torch.Generator(device="cpu")
         self._sample_gen.manual_seed(seed)
+        # the expert-parallel share the params hold (None: the whole model)
+        self.share = share
+        # one chip identity per expert of every 4-D expert bank
+        # (program_model(expert_chips=)); remembered so that refresh()
+        # reprograms the same fleet
+        self.expert_chips = tuple(expert_chips) if expert_chips is not None else None
         # the chip-plan compiler's per-layer datapath / ADC choices, threaded
         # into program_model at deploy time
         self.plan = plan
@@ -218,6 +232,7 @@ class ModelRunner:
             device_cfg=crossbar.device,
             fast=crossbar.fast,
             tie_lm_head=self._tie_lm_head,
+            expert_chips=self.expert_chips,
             plan=self.plan,
             device=self.device,
         )
@@ -386,8 +401,10 @@ class ModelRunner:
 
     def _with_crossbar(self, fn):
         """Run ``fn`` under the runner's crossbar mode with the programmed
-        model's name-keyed artifact table bound."""
+        model's name-keyed artifact table bound, and as the runner's expert
+        share."""
         with contextlib.ExitStack() as stack:
+            stack.enter_context(moe_mod.expert_share(self.share))
             if self.crossbar is not None:
                 stack.enter_context(crossbar_mode(self.crossbar))
                 if self.crossbar.programmed is not None:
@@ -517,8 +534,10 @@ class ServingEngine:
         spare_cols: Optional[int] = None,
         restore_artifacts: Optional[str] = None,
         verify_coverage: bool = True,
+        expert_chips=None,
         plan: Optional[ChipPlan] = None,
         rid_start: int = 0,
+        share: Optional[moe_mod.ExpertShare] = None,
         device="cuda",
     ):
         self.runner = ModelRunner(
@@ -531,7 +550,9 @@ class ServingEngine:
             spare_cols=spare_cols,
             restore_artifacts=restore_artifacts,
             verify_coverage=verify_coverage,
+            expert_chips=expert_chips,
             plan=plan,
+            share=share,
             device=device,
         )
         self.max_batch = max_batch
@@ -568,6 +589,14 @@ class ServingEngine:
     @property
     def plan(self) -> Optional[ChipPlan]:
         return self.runner.plan
+
+    @property
+    def expert_chips(self):
+        return self.runner.expert_chips
+
+    @property
+    def share(self) -> Optional[moe_mod.ExpertShare]:
+        return self.runner.share
 
     @property
     def crossbar(self) -> Optional[CrossbarMode]:

@@ -36,6 +36,7 @@ def test_port_has_the_expected_modules():
         "core/arch.py", "core/mapper.py", "core/energy.py", "analysis/store.py",
         "device/repair.py", "device/program.py", "device/health.py",
         "serving/kvcache.py", "serving/scheduler.py", "serving/farm.py",
+        "models/moe.py", "configs/kimi_k2_1t.py",
     ):
         assert want in names, want
     for src in ("crossbar_vmm.cu", "slstm_scan.cu"):

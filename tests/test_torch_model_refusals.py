@@ -1,8 +1,9 @@
 """PyTorch port: the model's entry points refuse configs whose blocks are not
-ported (MoE, an embedding front end) instead of running them wrong.  Each config is the JAX package's reduced config carried into the
-port's config class, with the JAX package's parameter tree carried across
-through ``params_from_numpy`` (that tree never passes through the port's
-``init_model``)."""
+ported (multi-head latent attention, mamba stages, an embedding front end)
+instead of running them wrong.  Each config is the JAX package's reduced
+config carried into the port's config class, with the JAX package's
+parameter tree carried across through ``params_from_numpy`` (that tree never
+passes through the port's ``init_model``)."""
 import dataclasses
 
 import jax
@@ -18,7 +19,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import model as TM
 
 CASES = {
-    "moe": ("kimi-k2-1t-a32b", "MoE"),
+    "mla": ("deepseek-v2-236b", "multi-head latent attention"),
+    "mamba": ("jamba-v0.1-52b", "mamba"),
     "embed_frontend": ("musicgen-large", "front end"),
 }
 
@@ -46,7 +48,8 @@ def carried(request):
 def test_the_carried_config_is_the_reference_config(carried):
     kind, tcfg, *_ = carried
     assert {
-        "moe": bool(tcfg.moe_experts) and any(any(s.moe) for s in tcfg.stages),
+        "mla": tcfg.kv_lora_rank > 0,
+        "mamba": any("mamba" in s.kinds for s in tcfg.stages),
         "embed_frontend": tcfg.frontend == "embed",
     }[kind]
 
