@@ -171,6 +171,34 @@ Phases (one JSON line each; any failure is an uncaught exception):
                one block a request) and one live slot paged out and into
                another free slot (every state leaf equal)
 
+  Training, after the served paths:
+  train_smollm  smollm-360m trained at full width and depth (bf16 params,
+               remat, AdamW under cosine_with_warmup, B = 4, S = 1024: two
+               loss chunks): (a) 12 uninterrupted ``TrainLoop`` steps against
+               6 steps with a checkpoint at 6, fresh params and state restored
+               by ``maybe_resume`` and 6 more: every param and optimizer-state
+               leaf ``torch.equal``; (b) 30 steps on one fixed batch: none
+               skipped, every loss finite, every param leaf moved, the last
+               loss below 0.9 x the first; (c) one poisoned step (loss x NaN):
+               skipped, params and state ``torch.equal`` to before; (d) the
+               port's loss and grads of the reduced config in float32 on the
+               card and on the CPU (loss rel 1e-5, each leaf's rel-L2 1e-4).
+               Step ms p50 / p99, tokens/s, model TFLOP/s (6 x params x
+               tokens), the optimizer's ms, peak GB, ``save_async`` snapshot
+               and write seconds, restore seconds; train_profile: two steps
+               under ``torch.profiler`` (device busy ms, idle share, launches
+               and device ms by kernel class a step)
+  train_then_serve  the trained params programmed onto an ideal chip and
+               served (6 x 16) through the fast kernel: 193 launches a
+               forward (from the chip, held to the config's count), the
+               logits within smollm's rel-L2 gate of the plain-matmul model,
+               every replayed tick ``torch.equal`` to eager
+               (graph_vs_eager_trained); the fixed batch's loss on the chip
+               beside the plain model's
+  train_launcher  ``python -m repro_torch.launch.train --arch smollm-360m
+               --steps 4 --batch 4 --seq 256 --ckpt-dir <tmp>`` then the same
+               with ``--steps 8``: both exit 0, the second resumes from step 4
+
 Needs one CUDA device; exits non-zero without one.  ``--quick`` (not used by
 the default run) cuts the kernel cases and the model depth for a fast check
 that the kernels build and agree.
@@ -192,7 +220,8 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.analysis import verify_store  # noqa: E402
 from repro_torch.configs import StageSpec, get_config, reduced  # noqa: E402
@@ -201,7 +230,8 @@ from repro_torch.core.crossbar import CrossbarSpec, DEFAULT_SPEC, layer_scaled_s
 from repro_torch.core.karatsuba import karatsuba_vmm  # noqa: E402
 from repro_torch.core.planner import LayerPlan, plan_model  # noqa: E402
 from repro_torch.core.strassen import strassen_matmul  # noqa: E402
-from repro_torch.checkpoint import active_slot  # noqa: E402
+from repro_torch.checkpoint import active_slot, latest_step  # noqa: E402
+from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.device import DeviceConfig, effective_cell_codes  # noqa: E402
 from repro_torch.device import programmed as tprog  # noqa: E402
 from repro_torch.device import repair as trepair  # noqa: E402
@@ -215,11 +245,14 @@ from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import ExpertShare, expert_share  # noqa: E402
 from repro_torch.models.layers import CrossbarMode, crossbar_misses, crossbar_mode, reset_crossbar_misses  # noqa: E402
+from repro_torch.optim import Optimizer, cosine_with_warmup, make_optimizer  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     BlockCacheConfig, ChipFarm, ContinuousBatchingScheduler, ModelRunner, Request, ServingEngine,
 )
 from repro_torch.serving.farm import POLICIES  # noqa: E402
 from repro_torch.serving.graphs import cache_leaves, clone_cache, named_leaves  # noqa: E402
+from repro_torch.train import TrainLoop, make_train_step, value_and_grad  # noqa: E402
+from repro_torch.tree import flatten, leaves, tree_map  # noqa: E402
 
 # Published peaks of one H100 SXM (dense): HBM bytes/s, int8 tensor ops/s and
 # float32 ops/s outside the tensor cores.
@@ -340,6 +373,20 @@ VMM_COUNTERS = tuple(kvmm.LAUNCHES)  # the three VMM kernels' launch counters
 # the head is the only projection of an xlstm chip: its logits stay close to
 # the plain-matmul model's (smollm-360m's 193 projections allow 0.25)
 XLSTM_REL_L2_MAX = 0.1
+# training (train_smollm): smollm-360m at full width, B x S tokens a step
+# (S = 1024: two loss chunks of 512); AdamW under cosine_with_warmup(lr,
+# steps // 10 + 1, steps), as the launcher sets it
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 1024, 1e-3
+RESUME_STEPS = 12  # the uninterrupted run; the resumed one checkpoints at half
+LEARN_STEPS = 30  # on one fixed batch: the last loss below 0.9 x the first
+# the port's loss and grads on the card against the CPU, reduced smollm in
+# float32 (TF32 off): reduction orders only
+CARD_VS_CPU_LOSS_REL = 1e-5
+CARD_VS_CPU_GRAD_REL_L2 = 1e-4
+# the trained chip's loss on the fixed batch against the plain-matmul
+# model's (train_then_serve): readings 1.3e-6 and 1.3e-4 (quantisation,
+# averaged over 4096 tokens); a wrong K1 above 256 rows moves it by far more
+TRAINED_LOSS_REL_MAX = 1e-2
 CSRC = "src/repro_torch/kernels/csrc/crossbar_vmm.cu"
 BIT_IDENTICAL = "bit-identical (torch.equal)"
 SCAN_TOLERANCE = (
@@ -672,6 +719,19 @@ def kernels_phase(dev, quick: bool):
                         sparse=False, skip=True, seed=6000 + len(cases), dev=dev, timed=M in KIMI_TIMED_M,
                     ))
                     torch.cuda.empty_cache()
+            if not quick:
+                # the trained chip's loss (train_then_serve): every projection
+                # at the training batch's B x S rows, the tied head at one loss
+                # chunk's B x c rows (untimed; seeds of their own)
+                rows = TRAIN_BATCH * TRAIN_SEQ
+                head_rows = TRAIN_BATCH * model_lib.loss_chunk(TRAIN_SEQ)
+                for K, N in MAIN_SHAPES:
+                    cases.append(run_case(
+                        kind, f"{tag}/train_loss", head_rows if (K, N) == MAIN_SHAPES[-1] else rows, K, N,
+                        layer_scaled_spec(base, K), cfg, sparse=False, skip=True, seed=9500 + len(cases),
+                        dev=dev, timed=False,
+                    ))
+                torch.cuda.empty_cache()
             seed = fast_edge_cases(cases, base, seed, dev, quick)
         if tag == "safe_adaptive_signed" and not quick:
             # off this slice's path: their deepest K loops yet, untimed
@@ -1433,7 +1493,7 @@ def serve_kimi(dev, seed, quick):
     params = model_lib.init_model(cfg, seed=seed, device=dev, share=KIMI_SHARE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    param_gb = sum(t.numel() * t.element_size() for _, t in tprog._walk(params)) / 1e9
+    param_gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
     torch.cuda.reset_peak_memory_stats()
     ideal = CrossbarMode(enabled=True, strict=True)
     line, launches, eng = serve_phase("serve_kimi", cfg, params, ideal, "fast", dev, seed + 1, False, share=KIMI_SHARE)
@@ -2997,6 +3057,290 @@ def serve_traffic_xlstm(cfg, params, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def tree_equal(a, b) -> bool:
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def on_device(batch, dev):
+    return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+
+
+def step_stats(seconds, tokens, n_params):
+    """Step ms p50 / p99 (host clock, each step ended by a sync), tokens/s
+    and the model's TFLOP/s by 6 x params x tokens a step at the median."""
+    ms = sorted(1e3 * x for x in seconds)
+    p50 = statistics.median(ms)
+    return dict(
+        steps_timed=len(ms), step_ms_p50=p50, step_ms_p99=ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+        tokens_per_s=tokens / (p50 / 1e3),
+        model_tflops_per_s=6 * n_params * tokens / (p50 / 1e3) / 1e12,
+        model_flops_formula="6 x params x tokens a step / step time (p50); remat's extra forward not counted",
+    )
+
+
+def train_smollm(cfg, dev, seed):
+    """smollm-360m trained on the card at full width (bf16 params, remat,
+    AdamW under cosine_with_warmup, B = 4, S = 1024: two loss chunks).
+    (a) resume: 12 uninterrupted ``TrainLoop`` steps against 6 steps with
+    a checkpoint at 6, fresh params and state restored by ``maybe_resume``
+    and 6 more: every param and state leaf ``torch.equal``; (b) learning:
+    30 steps on one fixed batch, none skipped, every loss finite, every
+    param leaf moved, the last loss below 0.9 x the first; (c) one poisoned
+    step (loss x NaN): skipped, params and state ``torch.equal`` to before;
+    (d) the port's loss and grads of the reduced config in float32 on the
+    card and on the CPU.  Returns the trained params and the fixed batch."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+
+    def fresh(opt):
+        p = model_lib.init_model(cfg, seed, device=dev)
+        return p, opt.init(p)
+
+    # (a) resume
+    opt = make_optimizer("adamw", cosine_with_warmup(TRAIN_LR, RESUME_STEPS // 10 + 1, RESUME_STEPS))
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    p, o = fresh(opt)
+    whole = TrainLoop(cfg, step_fn, ds, ckpt_dir=None, log_every=100)
+    n_params = sum(t.numel() for t in flatten(p).values())
+    p_ref, o_ref = whole.run(p, o, RESUME_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as d:
+        first = TrainLoop(cfg, step_fn, ds, ckpt_dir=d, ckpt_every=RESUME_STEPS // 2, log_every=100)
+        p, o = fresh(opt)
+        first.run(p, o, RESUME_STEPS // 2)
+        snapshot_s, write_s = first.ckpt.snapshot_seconds, first.ckpt.write_seconds
+        del p, o
+        second = TrainLoop(cfg, step_fn, ds, ckpt_dir=d, ckpt_every=100, log_every=100)
+        p, o = fresh(opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, start = second.maybe_resume(p, o)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(start == RESUME_STEPS // 2, f"train_smollm: resumed at step {start}, expected {RESUME_STEPS // 2}")
+        p, o = second.run(p, o, RESUME_STEPS, start_step=start)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f"step_{start:09d}", f))
+                         for f in os.listdir(os.path.join(d, f"step_{start:09d}")))
+    resumed_equal = tree_equal({"p": p_ref, "o": o_ref}, {"p": p, "o": o})
+    del p, o, p_ref, o_ref
+    torch.cuda.empty_cache()
+
+    # (b) learning on one fixed batch; the optimizer's update timed apart
+    # by CUDA events
+    opt = make_optimizer("adamw", cosine_with_warmup(TRAIN_LR, LEARN_STEPS // 10 + 1, LEARN_STEPS))
+    update_events = []
+
+    def timed_update(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = opt.update(*args, **kw)
+        end.record()
+        update_events.append((start, end))
+        return out
+
+    step_fn = make_train_step(cfg, Optimizer(opt.init, timed_update))
+    batch = on_device(ds.batch_at(0), dev)
+    p, o = fresh(opt)
+    initial = {k: v.clone() for k, v in flatten(p).items()}
+    step = torch.tensor(0, dtype=torch.int32, device=dev)
+    losses, skipped, learn_s = [], 0, []
+    for _ in range(LEARN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, step, m = step_fn(p, o, step, batch)
+        torch.cuda.synchronize()
+        learn_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        skipped += int(m["skipped"])
+    moved = [k for k, v in flatten(p).items() if not torch.equal(v, initial[k])]
+    update_ms = sorted(start.elapsed_time(end) for start, end in update_events[1:])
+    del initial
+
+    # (c) the NaN guard: one poisoned step leaves params and state as they were
+    poisoned = make_train_step(cfg, opt, loss_fn=lambda q, b: model_lib.loss_fn(q, cfg, b) * float("nan"))
+    before = tree_map(torch.clone, {"p": p, "o": o})
+    p, o, step, m = poisoned(p, o, step, batch)
+    nan_skipped = int(m["skipped"])
+    nan_kept = tree_equal(before, {"p": p, "o": o})
+    del before
+    train_profile(step_fn, p, o, step, batch)
+    del o
+    torch.cuda.empty_cache()
+
+    line = dict(
+        phase="train_smollm", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        params=n_params, param_dtype=cfg.param_dtype, remat=cfg.remat, optimizer="adamw", batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, loss_chunks=TRAIN_SEQ // model_lib.loss_chunk(TRAIN_SEQ), lr=TRAIN_LR,
+        resume_steps=RESUME_STEPS, resumed_at=start, resumed_equal=resumed_equal,
+        loop_step_ms=[1e3 * x for x in whole.step_seconds],
+        **step_stats(learn_s[1:], tokens, n_params),
+        update_ms_p50=statistics.median(update_ms), cold_first_step_ms=1e3 * whole.step_seconds[0],
+        peak_gb=peak_gb,
+        save_async_snapshot_seconds=snapshot_s, save_async_write_seconds=write_s, restore_seconds=restore_s,
+        checkpoint_gb=ckpt_bytes / 1e9,
+        learn_steps=LEARN_STEPS, first_loss=losses[0], last_loss=losses[-1], losses=losses, learn_skipped=skipped,
+        leaves_moved=f"{len(moved)}/{len(flatten(p))}", nan_skipped=nan_skipped, nan_kept_params_and_state=nan_kept,
+        **train_card_vs_cpu(dev, seed),
+    )
+    emit(line)
+    require(resumed_equal, "train_smollm: the resumed run differs from the uninterrupted one")
+    require(skipped == 0 and all(np.isfinite(losses)), f"train_smollm: skipped {skipped}, losses {losses}")
+    require(len(moved) == len(flatten(p)), f"train_smollm: only {len(moved)} param leaves moved")
+    require(losses[-1] < 0.9 * losses[0], f"train_smollm: loss {losses[0]} -> {losses[-1]}, not below 0.9x")
+    require(nan_skipped == 1 and nan_kept, "train_smollm: the poisoned step was applied")
+    require(line["card_vs_cpu_loss_rel"] <= CARD_VS_CPU_LOSS_REL, f"train_smollm: card vs CPU loss {line}")
+    require(line["card_vs_cpu_grad_rel_l2_max"] <= CARD_VS_CPU_GRAD_REL_L2, f"train_smollm: card vs CPU grads {line}")
+    return p, batch
+
+
+def gemm_kind(name):
+    """A device kernel's class by its name: a float32 matmul (the plain
+    attention's products: TF32 is off and every projection is bf16), a
+    16-bit matmul, or anything else."""
+    n = name.lower()
+    if not any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "other"
+    return "matmul_f32" if any(t in n for t in ("f32f32", "sgemm", "_sss", "tf32")) else "matmul_16bit"
+
+
+def train_profile(step_fn, p, o, step, batch, steps=2):
+    """``steps`` train steps under ``torch.profiler``, opened by the spin
+    prologue (``profile_window``): device busy ms and launches a step, the
+    device's idle share, device ms by kernel class (``gemm_kind``) and the
+    heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PROLOGUE):
+            torch.cuda._sleep(PROLOGUE_SPIN_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            p, o, step, _ = step_fn(p, o, step, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, prologue_seen = [], 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            if PROLOGUE_KERNEL in e.key:
+                prologue_seen += e.count
+            else:
+                kernels.append((e.key, e.self_device_time_total / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    by_kind = {}
+    for name, ms, _ in kernels:
+        by_kind[gemm_kind(name)] = by_kind.get(gemm_kind(name), 0.0) + ms / steps
+    line = dict(
+        phase="train_profile", steps=steps, wall_ms_per_step_profiled=wall_ms / steps,
+        device_busy_ms_per_step=busy_ms / steps, device_idle_share=1.0 - busy_ms / wall_ms,
+        device_launches_per_step=sum(k[2] for k in kernels) / steps, device_ms_per_step_by_kind=by_kind,
+        top_device_time=[dict(name=k[0][:70], ms_per_step=k[1] / steps, calls_per_step=k[2] / steps) for k in kernels[:10]],
+        prologue_records_lost=PROFILE_PROLOGUE - prologue_seen,
+    )
+    emit(line)
+    require(prologue_seen > 0, f"train_profile: the profiler lost all {PROFILE_PROLOGUE} prologue records")
+    require(busy_ms > 0, "train_profile: no device time in the window")
+    return line
+
+
+def train_card_vs_cpu(dev, seed):
+    """The port's loss and grads of the reduced smollm in float32 (two loss
+    chunks of 512) on the card and on the CPU, from the same params and
+    batch."""
+    cfg = reduced(get_config("smollm-360m"))
+    params = model_lib.init_model(cfg, seed, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLMDataset(cfg.vocab_size, 1024, 2, seed).batch_at(0).items()}
+    loss_fn = lambda q, b: model_lib.loss_fn(q, cfg, b)  # noqa: E731
+    cpu_loss, cpu_grads = value_and_grad(loss_fn, params, batch)
+    card_loss, card_grads = value_and_grad(loss_fn, tree_map(lambda t: t.to(dev), params), on_device(batch, dev))
+    cg, kg = flatten(cpu_grads), flatten(card_grads)
+    errs = {k: float((kg[k].cpu() - cg[k]).norm() / cg[k].norm()) for k in cg}
+    return dict(
+        card_vs_cpu_loss=[float(card_loss), float(cpu_loss)],
+        card_vs_cpu_loss_rel=abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss)),
+        card_vs_cpu_grad_rel_l2_max=max(errs.values()), card_vs_cpu_worst_leaf=max(errs, key=errs.get),
+    )
+
+
+def train_then_serve(cfg, params, batch, dev, seed):
+    """The trained params programmed onto an ideal chip and served (6 x 16,
+    max_batch 4, max_seq 256) through K1: one launch a projection of every
+    forward, the logits within smollm's rel-L2 gate of the plain-matmul
+    model of the same params, every replayed tick ``torch.equal`` to eager;
+    the fixed batch's loss on the chip (``loss_fn`` without grad under the
+    crossbar mode) within ``TRAINED_LOSS_REL_MAX`` of the plain model's: K1
+    runs there at the training batch's rows, which ``kernels_phase`` holds
+    to its plain version."""
+    ideal = CrossbarMode(enabled=True, strict=True)
+    torch.cuda.reset_peak_memory_stats()
+    line, launches, eng = serve_phase("train_then_serve", cfg, params, ideal, "fast", dev, seed, False)
+    # 4 attention projections, the fused wi and wo a layer, and the tied head
+    expected = sum(spec.repeats * 6 * len(spec.kinds) for spec in cfg.stages) + 1
+    require(
+        line["projections"] == expected,
+        f"train_then_serve: the chip serves {line['projections']} projections a forward, the config {expected}",
+    )
+    line["logits_rel_l2_vs_plain_matmul"] = reference_check(cfg, params, eng, dev)[0]
+    with torch.no_grad():
+        plain_loss = float(model_lib.loss_fn(params, cfg, batch))
+        with crossbar_mode(eng.crossbar), eng.programmed.bind():
+            chip_loss = float(model_lib.loss_fn(params, cfg, batch))
+    line.update(
+        fixed_batch_loss_chip=chip_loss, fixed_batch_loss_plain_matmul=plain_loss,
+        fixed_batch_loss_rel=abs(chip_loss - plain_loss) / abs(plain_loss),
+    )
+    emit(line)
+    require(
+        line["logits_rel_l2_vs_plain_matmul"] < REL_L2_MAX[cfg.name],
+        f"train_then_serve: the trained chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) from plain",
+    )
+    require(np.isfinite(chip_loss) and np.isfinite(plain_loss), f"train_then_serve: losses {chip_loss}, {plain_loss}")
+    require(
+        line["fixed_batch_loss_rel"] < TRAINED_LOSS_REL_MAX,
+        f"train_then_serve: the chip's loss {chip_loss} is {line['fixed_batch_loss_rel']} (rel) from plain {plain_loss}",
+    )
+    graph_vs_eager("trained", eng, make_requests(cfg, seed + 6))
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_launcher(steps=4, more=8):
+    """``python -m repro_torch.launch.train`` at full width (B = 4, S =
+    256) for ``steps`` steps, then the same command to ``more``: the second
+    run resumes from the first one's checkpoint."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])
+    ))
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "smollm-360m",
+               "--batch", "4", "--seq", "256", "--ckpt-dir", d]
+        for n in (steps, more):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd + ["--steps", str(n)], capture_output=True, text=True, env=env, timeout=600)
+            runs.append(dict(steps=n, rc=r.returncode, seconds=time.perf_counter() - t0, stdout=r.stdout,
+                             stdout_tail=r.stdout.strip().splitlines()[-4:], stderr_tail=r.stderr.strip()[-2000:]))
+        latest = latest_step(d)
+    resumed = f"[train] resumed from step {steps}"
+    outs = [r.pop("stdout") for r in runs]
+    emit(dict(phase="train_launcher", runs=runs, latest_step=latest))
+    require(all(r["rc"] == 0 for r in runs), f"train_launcher: exit codes {[r['rc'] for r in runs]}")
+    require(
+        "resumed" not in outs[0] and resumed in outs[1], f"train_launcher: the second run did not print '{resumed}'"
+    )
+    require(latest == more, f"train_launcher: newest checkpoint {latest}, expected {more}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3190,6 +3534,17 @@ def main() -> int:
     by_path["serve_kimi"] = serve_kimi(dev, args.seed + 50, args.quick)
     by_path["moe_expert_chips"] = moe_expert_chips(dev, args.seed + 51)
     moe_dispatch_card_vs_cpu(dev, args.seed + 52)
+    # training: smollm-360m at full width on the card, its trained weights
+    # then served from an ideal chip, and the launcher as a user runs it
+    tcfg = get_config("smollm-360m")
+    if args.quick:
+        tcfg = dataclasses.replace(tcfg, n_layers=2, stages=())
+    trained, batch = train_smollm(tcfg, dev, args.seed + 60)
+    by_path["train_then_serve"] = train_then_serve(tcfg, trained, batch, dev, args.seed + 61)
+    del trained, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launcher()
     # kernel launches only: the planned datapaths run no kernel of ours
     launches = {k: sum(n[k] for n in by_path.values()) for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
     require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")

@@ -1,6 +1,16 @@
-"""Programmed-crossbar artifact store (counterpart of the
-``save_programmed`` / ``restore_programmed`` half of
-``repro.checkpoint.checkpoint``).
+"""Weight checkpoints and the programmed-crossbar artifact store
+(counterpart of ``repro.checkpoint.checkpoint``).
+
+Weight checkpoints (``save_checkpoint`` / ``restore_checkpoint`` /
+``CheckpointManager``), in the reference's layout: ``<dir>/step_<n>/``
+holds one ``.npy`` a leaf, named by its ``a__b__c`` path, and
+``manifest.json`` (step, metadata, each leaf's file, shape and dtype).  A
+write goes to ``step_<n>.tmp`` and is renamed into place, so a killed job
+never leaves a half checkpoint that restore would pick up.  A bfloat16 leaf
+is written as the reference writes one (numpy has no bfloat16: a 2-byte
+void ``'<V2'`` array of the raw words, manifest dtype ``bfloat16``) and is
+restored **by the manifest's dtype**, its words viewed as
+``torch.bfloat16``; so checkpoints interchange both ways.
 
 The store is the interchange format between the two packages: one ``.npz``
 per artifact (every non-None array leaf, exact dtypes) plus ``manifest.json``
@@ -20,7 +30,10 @@ import dataclasses as dc
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +49,8 @@ from repro_torch.device.programmed import (
     ProgrammedModel,
 )
 from repro_torch.device.repair import RepairReport
+from repro_torch.convert import tensor_to_numpy
+from repro_torch.tree import flatten, unflatten
 
 PROGRAMMED_SLOTS = ("A", "B")
 
@@ -234,3 +249,151 @@ def restore_programmed(directory: str, device="cuda", slot: Optional[str] = None
             node = node.setdefault(p, {})
         node[parts[-1]] = art
     return ProgrammedModel(tree)
+
+
+# ---------------------------------------------------------------------------
+# Weight checkpoints (params, optimizer state)
+# ---------------------------------------------------------------------------
+
+_BF16_DESCR = "<V2"  # the descr numpy writes for the reference's bfloat16 leaves
+
+
+def _host_leaf(leaf) -> Tuple[np.ndarray, str]:
+    """(host copy as numpy, manifest dtype) of a tensor or numpy leaf; a
+    bfloat16 leaf as its 16-bit words."""
+    if isinstance(leaf, torch.Tensor):
+        return tensor_to_numpy(leaf), str(leaf.dtype).replace("torch.", "")
+    arr = np.array(leaf)
+    if arr.dtype.name == "bfloat16":
+        return arr.view(np.uint16), "bfloat16"
+    return arr, str(arr.dtype)
+
+
+def _write_npy(path: str, arr: np.ndarray, dtype: str) -> None:
+    if dtype != "bfloat16":
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False, "shape": arr.shape}
+        )
+        f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _write_checkpoint(directory: str, step: int, flat: Dict[str, Tuple[np.ndarray, str]], metadata) -> str:
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:09d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"step": step, "metadata": metadata or {}, "leaves": {}}
+    for key, (arr, dtype) in flat.items():
+        fname = key.replace("/", "__") + ".npy"
+        _write_npy(os.path.join(tmp, fname), arr, dtype)
+        manifest["leaves"][key] = {"file": fname, "shape": list(arr.shape), "dtype": dtype}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def save_checkpoint(directory: str, step: int, tree, metadata: Optional[dict] = None) -> str:
+    """Synchronous atomic checkpoint write of a tree of tensors (or numpy
+    arrays)."""
+    return _write_checkpoint(
+        directory, step, {k: _host_leaf(v) for k, v in flatten(tree).items()}, metadata
+    )
+
+
+def _checkpoint_steps(directory: str):
+    return [
+        int(d.split("_")[1])
+        for d in os.listdir(directory)
+        if d.startswith("step_") and not d.endswith(".tmp")
+    ]
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = _checkpoint_steps(directory)
+    return max(steps) if steps else None
+
+
+def _read_leaf(path: str, dtype: str) -> torch.Tensor:
+    arr = np.load(path)
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def restore_checkpoint(directory: str, step: Optional[int], tree_like):
+    """(tree, step, metadata) of checkpoint ``step`` (None: the newest).
+
+    ``tree_like`` gives the structure; each leaf is restored in the dtype
+    its manifest records, onto the device of ``tree_like``'s leaf where that
+    is a tensor, else the CPU (the counterpart of the reference's elastic
+    re-placement)."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+    d = os.path.join(directory, f"step_{step:09d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    flat = {
+        key: _read_leaf(os.path.join(d, info["file"]), info["dtype"])
+        for key, info in manifest["leaves"].items()
+    }
+    targets = flatten(tree_like)
+    for key, t in flat.items():
+        if isinstance(targets.get(key), torch.Tensor):
+            flat[key] = t.to(targets[key].device)
+    return unflatten(tree_like, flat), manifest["step"], manifest["metadata"]
+
+
+class CheckpointManager:
+    """Asynchronous checkpoints: ``save_async`` snapshots every leaf to host
+    memory (a copy, so that later in-place updates cannot reach it), then
+    writes on a background thread; ``keep`` bounds how many are kept.
+    ``snapshot_seconds`` / ``write_seconds`` time the last save's two
+    halves."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending = None
+        self._lock = threading.Lock()
+        self.snapshot_seconds: Optional[float] = None
+        self.write_seconds: Optional[float] = None
+
+    def save_async(self, step: int, tree, metadata: Optional[dict] = None):
+        """Snapshot to host memory now; write files in the background."""
+        self.wait()
+        t0 = time.perf_counter()
+        host = {key: _host_leaf(leaf) for key, leaf in flatten(tree).items()}
+        self.snapshot_seconds = time.perf_counter() - t0
+        self._pending = self._pool.submit(self._write, step, host, metadata)
+
+    def _write(self, step, host, metadata):
+        t0 = time.perf_counter()
+        _write_checkpoint(self.directory, step, host, metadata)
+        self._gc()
+        self.write_seconds = time.perf_counter() - t0
+
+    def wait(self):
+        with self._lock:
+            if self._pending is not None:
+                pending, self._pending = self._pending, None
+                pending.result()
+
+    def _gc(self):
+        for s in sorted(_checkpoint_steps(self.directory))[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"), ignore_errors=True)
+
+    def restore_latest(self, tree_like):
+        return restore_checkpoint(self.directory, None, tree_like)

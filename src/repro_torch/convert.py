@@ -1,9 +1,12 @@
-"""Carry parameters and artifacts across from numpy (port-only module).
+"""Carry parameters, optimizer states and artifacts across from numpy, and
+back (port-only module).
 
-The JAX package's params pytree, pulled to the host as nested dicts of numpy
-arrays, becomes the port's params — same names, so programmed artifacts bind
-unchanged.  bfloat16 arrives as an ``ml_dtypes`` numpy dtype that
-``torch.from_numpy`` refuses; it is widened exactly through its bit pattern.
+The JAX package's params pytree (or an optimizer state), pulled to the host
+as nested dicts of numpy arrays, becomes the port's params — same names, so
+programmed artifacts bind unchanged.  bfloat16 arrives as an ``ml_dtypes``
+numpy dtype that ``torch.from_numpy`` refuses; it is widened exactly through
+its bit pattern.  ``tree_to_numpy`` goes the other way, a bfloat16 tensor as
+its 16-bit pattern (``uint16``), since numpy has no bfloat16 of its own.
 
 An MoE model's expert banks — ``wi`` / ``wg`` / ``wo`` leaves of shape (L, E,
 K, N), and the artifacts programmed from them — can be carried as one
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.device.programmed import ARTIFACT_ARRAY_FIELDS, ProgrammedLinear
 from repro_torch.models.moe import ExpertShare
+from repro_torch.tree import tree_map
 
 _BANKS = ("wi", "wg", "wo")
 
@@ -32,6 +36,21 @@ def tensor_from_numpy(arr, device="cuda", dtype: Optional[torch.dtype] = None) -
     else:
         t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor on the host as numpy (later in-place updates of
+    the tensor do not reach it); bfloat16 as its bits in ``uint16``."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """Nested dicts of tensors -> nested dicts of numpy arrays
+    (``tensor_to_numpy`` leaf by leaf)."""
+    return tree_map(tensor_to_numpy, tree)
 
 
 def expert_slice(n_experts: int, share: ExpertShare) -> slice:

@@ -421,7 +421,8 @@ def plan_model(
     """
     import torch
 
-    from repro_torch.device.programmed import _walk, expected_artifact_names
+    from repro_torch.device.programmed import expected_artifact_names
+    from repro_torch.tree import walk
 
     shapes = expected_artifact_names(
         params, tie_lm_head=tie_lm_head, leaf_filter=leaf_filter
@@ -435,7 +436,7 @@ def plan_model(
     # mean |w| per planned leaf, in the walk's (sorted-key) order — the tied
     # head's transposed artifact shares the embedding's name and leaf
     mags: Dict[str, float] = {}
-    for path, leaf in _walk(params):
+    for path, leaf in walk(params):
         key = "/".join(path)
         if isinstance(leaf, torch.Tensor) and key in shapes:
             mags[key] = float(torch.mean(torch.abs(leaf)))

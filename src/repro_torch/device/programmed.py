@@ -53,6 +53,7 @@ from repro_torch.device import models as dm
 from repro_torch.device import repair as repair_mod
 from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda
 from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda
+from repro_torch.tree import walk
 
 # Every array leaf a ProgrammedLinear carries — the single source of truth
 # for serialization (checkpoint.save_programmed) and equality checks.
@@ -435,19 +436,10 @@ def scoped_name(name: str) -> str:
     return "/".join(getattr(_SCOPE, "stack", []) + [str(name)])
 
 
-def _walk(tree: Any, prefix: Tuple[str, ...] = ()):
-    """(path, leaf) pairs of a nested dict, keys in sorted order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _walk(tree[k], prefix + (str(k),))
-    elif tree is not None:
-        yield prefix, tree
-
-
 def artifact_names(artifacts: Any, prefix: str = "") -> Dict[str, ProgrammedLinear]:
     """Flatten an artifact (sub)tree into {joined path: artifact}."""
     out: Dict[str, ProgrammedLinear] = {}
-    for path, art in _walk(artifacts):
+    for path, art in walk(artifacts):
         if isinstance(art, ProgrammedLinear):
             out["/".join(p for p in (prefix, "/".join(path)) if p)] = art
     return out
@@ -638,14 +630,14 @@ class ProgrammedModel:
     def map_artifacts(self, fn: Callable[[ProgrammedLinear], ProgrammedLinear]) -> "ProgrammedModel":
         """A new ProgrammedModel with ``fn`` applied to every artifact."""
 
-        def walk(tree):
+        def remap(tree):
             if isinstance(tree, ProgrammedLinear):
                 return fn(tree)
             if isinstance(tree, dict):
-                return {k: walk(v) for k, v in tree.items()}
+                return {k: remap(v) for k, v in tree.items()}
             return tree
 
-        return ProgrammedModel(walk(self.artifacts))
+        return ProgrammedModel(remap(self.artifacts))
 
     @property
     def t_service_s(self) -> float:
@@ -708,7 +700,7 @@ def program_model(
         raise RuntimeError("program_model(device='cuda') needs a CUDA device; pass device='cpu'")
     pred = leaf_filter if leaf_filter is not None else _matmul_leaf
     artifacts: Dict[str, Any] = {}
-    for path, leaf in _walk(params):
+    for path, leaf in walk(params):
         action = _program_action(path, leaf, pred, tie_lm_head)
         if action is None:
             continue
@@ -735,7 +727,7 @@ def expected_artifact_names(
     without programming anything."""
     pred = leaf_filter if leaf_filter is not None else _matmul_leaf
     out: Dict[str, Tuple[int, ...]] = {}
-    for path, leaf in _walk(params):
+    for path, leaf in walk(params):
         action = _program_action(path, leaf, pred, tie_lm_head)
         if action is not None:
             shape = tuple(leaf.shape)

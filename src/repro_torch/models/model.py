@@ -5,6 +5,7 @@ stages, with dense or MoE FFNs).
 Entry points:
   * ``init_model(cfg, seed, device, dtype, share)`` -> params (nested dicts)
   * ``forward(params, cfg, tokens)`` -> logits (B, S, V)
+  * ``loss_fn(params, cfg, batch)`` -> next-token cross entropy (training)
   * ``init_cache(cfg, B, S, dtype, device)`` -> cache
   * ``cache_axes(cfg)`` -> the cache's logical axes, leaf by leaf
   * ``prefill(params, cfg, tokens, cache)`` -> (last_logits, cache)
@@ -12,16 +13,22 @@ Entry points:
 
 Layers are stacked per stage on a leading axis (the names are the artifact
 keys); a stage runs as a Python loop over that axis.  Caches are updated in
-place and returned.  Nothing here needs gradients: the entry points run under
-``torch.no_grad``.  The expert banks of an MoE config may hold one rank's
-share of the experts (``init_model(share=)``); its MoE layers then run under
-``moe.expert_share(share)``.
+place and returned.  ``forward``, ``prefill`` and ``decode_step`` serve and
+run under ``torch.no_grad``.  ``loss_fn`` is the training path: it runs
+under autograd when grad mode is on (each layer recomputed in backward under
+``cfg.remat``, each loss chunk always), and without grad it is a chip's
+evaluation loss under an enabled crossbar mode too.  Configs with sLSTM
+stages do not train (``require_trainable``): on the card the sLSTM scan is
+a kernel without a backward.  The expert banks of an MoE config may hold one
+rank's share of the experts (``init_model(share=)``); its MoE layers then
+run under ``moe.expert_share(share)``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, StageSpec
 from repro_torch.device.programmed import _push_bind_map, name_scope
@@ -29,6 +36,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import current_crossbar, embed, lm_head, mlp, rms_norm
+
+LOSS_CHUNK = 512  # sequence chunking bounds the live (B, c, V) logits buffer
 
 
 def require_device(device) -> torch.device:
@@ -69,6 +78,16 @@ def _require_ported_config(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: multi-head latent attention is not ported yet")
     if cfg.frontend != "token":
         raise NotImplementedError(f"{cfg.name}: front end {cfg.frontend!r} is not ported yet")
+
+
+def require_trainable(cfg: ModelConfig) -> None:
+    """Refuse to train a config with sLSTM stages: on a CUDA tensor the
+    sLSTM recurrence is the scan kernel, whose output has no ``grad_fn``, so
+    every gradient upstream of it would be silently missing."""
+    if any("slstm" in spec.kinds for spec in cfg.stages):
+        raise NotImplementedError(
+            f"{cfg.name}: sLSTM training is not ported yet (the sLSTM scan kernel has no backward)"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -225,10 +244,15 @@ def cache_axes(cfg: ModelConfig):
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _layer(tree: Any, r: int) -> Any:
+def _unbind_layers(tree: Any, repeats: int) -> List[Any]:
+    """The ``repeats`` per-layer views of a stacked tree, one ``unbind`` a
+    leaf: under autograd the layers' gradients then meet in one stacked
+    gradient (a select per layer would build a zero-padded full-size
+    gradient for every layer)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, r) for k, v in tree.items()}
-    return tree[r]
+        per = {k: _unbind_layers(v, repeats) for k, v in tree.items()}
+        return [{k: per[k][r] for k in per} for r in range(repeats)]
+    return list(torch.unbind(tree, 0))
 
 
 def _apply_block(
@@ -273,24 +297,36 @@ def _run_stage(
     cache_stage=None,
     decode_pos: Optional[torch.Tensor] = None,
     layer_maps: Optional[List[Dict[str, Any]]] = None,
+    remat: bool = False,
 ):
     """Walk the stacked layer axis.  Must run under ``name_scope("stage{i}")``;
     layer ``r``'s artifact views (``layer_maps[r]``, sliced once when the chip
     was bound) are pushed for its blocks.  ``cache_stage`` is written in place
-    through per-layer views."""
+    through per-layer views.  ``remat`` (training, no cache): each layer is
+    recomputed in backward and saves only its input, the counterpart of the
+    reference's ``jax.checkpoint(body, policy=nothing_saveable)``."""
     for kind in spec.kinds:
         _require_ported(kind)
+    layers = _unbind_layers(params_stage, spec.repeats)
+    caches = _unbind_layers(cache_stage, spec.repeats) if cache_stage is not None else [None] * spec.repeats
+    share = moe_mod.current_expert_share()
     for r in range(spec.repeats):
-        lp = _layer(params_stage, r)
-        cl = _layer(cache_stage, r) if cache_stage is not None else None
+
+        def layer(x, lp=layers[r], cl=caches[r]):
+            # the share is entered again here: a recompute in backward runs
+            # outside the caller's context
+            with moe_mod.expert_share(share):
+                for i, kind in enumerate(spec.kinds):
+                    entry = cl[f"b{i}"] if cl is not None else None
+                    with name_scope(f"b{i}"):
+                        x, _ = _apply_block(
+                            lp[f"b{i}"], x, cfg, kind, bool(spec.moe[i]) and cfg.moe_experts > 0,
+                            positions, entry, decode_pos,
+                        )
+            return x
+
         with _push_bind_map(layer_maps[r] if layer_maps is not None else {}):
-            for i, kind in enumerate(spec.kinds):
-                entry = cl[f"b{i}"] if cl is not None else None
-                with name_scope(f"b{i}"):
-                    x, _ = _apply_block(
-                        lp[f"b{i}"], x, cfg, kind, bool(spec.moe[i]) and cfg.moe_experts > 0,
-                        positions, entry, decode_pos,
-                    )
+            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return x, cache_stage
 
 
@@ -305,13 +341,13 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return lm_head(params["head"], x, tied=False, cap=cfg.logit_softcap, name="head")
 
 
-def _stages(params, cfg: ModelConfig, x, positions, cache=None, decode_pos=None):
+def _stages(params, cfg: ModelConfig, x, positions, cache=None, decode_pos=None, remat=False):
     for si, spec in enumerate(cfg.stages):
         with name_scope(f"stage{si}"):
             x, _ = _run_stage(
                 params[f"stage{si}"], x, cfg, spec, positions,
                 cache_stage=(cache[si] if cache is not None else None),
-                decode_pos=decode_pos, layer_maps=_stage_layer_maps(si),
+                decode_pos=decode_pos, layer_maps=_stage_layer_maps(si), remat=remat,
             )
     return x
 
@@ -324,6 +360,58 @@ def forward(params, cfg: ModelConfig, inp: torch.Tensor, positions=None) -> torc
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     return _logits(params, cfg, _stages(params, cfg, x, positions))
+
+
+def loss_chunk(S: int) -> int:
+    """Positions a loss chunk covers: ``LOSS_CHUNK``, or the whole sequence
+    where ``S`` is not a multiple of it (the reference's rule)."""
+    c = min(LOSS_CHUNK, S)
+    return c if S % c == 0 else S
+
+
+def _chunk_nll(params, cfg: ModelConfig, xc, tc, mc) -> torch.Tensor:
+    """Summed masked NLL of one sequence chunk: the head, a float32
+    logsumexp and a gather of the target logit (exact, where the reference
+    contracts with a one-hot to keep the vocab dim sharded)."""
+    logits = _logits(params, cfg, xc).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, tc.to(torch.int64)[..., None])[..., 0]
+    return torch.sum((lse - lab) * mc)
+
+
+def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Next-token cross entropy.  ``batch``: {"inputs": (B, S) tokens,
+    "targets": (B, S), optional "mask": (B, S)}; the masked sum over
+    ``max(sum(mask), 1)``.
+
+    The head and logsumexp run in chunks of ``LOSS_CHUNK`` positions (the
+    whole sequence where ``S`` is not a multiple), each recomputed in
+    backward, so the live logits stay at (B, c, V).  Grad mode decides the
+    path: with grad (training) layers are recomputed under ``cfg.remat`` and
+    an enabled crossbar mode is refused; without grad it runs under the
+    active crossbar mode, for a chip's evaluation loss."""
+    _require_ported_config(cfg)
+    require_trainable(cfg)
+    grad = torch.is_grad_enabled()
+    if grad and current_crossbar().enabled:
+        raise RuntimeError(
+            "loss_fn under an enabled crossbar mode runs without grad only (a chip's "
+            "evaluation loss); training runs on the plain matmuls"
+        )
+    x = embed(params["embed"], batch["inputs"], cfg.embed_scale, cfg.d_model)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    x = _stages(params, cfg, x, positions, remat=cfg.remat and grad)
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device) if mask is None else mask.to(torch.float32)
+
+    c = loss_chunk(S)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(0, S, c):
+        part = (params, cfg, x[:, j:j + c], targets[:, j:j + c], mask[:, j:j + c])
+        total = total + (checkpoint(_chunk_nll, *part, use_reentrant=False) if grad else _chunk_nll(*part))
+    return total / torch.clamp(torch.sum(mask), min=1.0)
 
 
 @torch.no_grad()

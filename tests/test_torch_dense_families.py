@@ -29,6 +29,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.layers import CrossbarMode
 from repro_torch.serving import ServingEngine
+from repro_torch.tree import flatten
 
 ARCHS = ["gemma2-9b", "minitron-4b", "starcoder2-3b"]
 # Digital tolerance, as for smollm (test_torch_model): transcendentals and
@@ -38,7 +39,7 @@ DIGITAL = dict(rtol=1e-4, atol=1e-4)
 
 def _flat(tree):
     """{joined name: leaf} of a nested dict of JAX or torch leaves."""
-    return {"/".join(p): v for p, v in tprog._walk(tree)}
+    return flatten(tree)
 
 
 @pytest.fixture(scope="module", params=ARCHS)

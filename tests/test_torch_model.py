@@ -22,6 +22,7 @@ from repro_torch.device import programmed as tprog
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from repro_torch.tree import flatten
 
 # Digital tolerance: transcendentals (rsqrt, exp, sin/cos, sigmoid) and
 # reduction orders differ between XLA-CPU and torch-CPU by float32 ULPs.
@@ -57,7 +58,7 @@ def test_params_carry_over_names_and_values(tiny):
         "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
         for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]
     }
-    flat_t = {"/".join(p): v for p, v in tprog._walk(tparams)}
+    flat_t = flatten(tparams)
     assert sorted(flat_j) == sorted(flat_t)
     for name, v in flat_j.items():
         np.testing.assert_array_equal(flat_t[name].numpy(), v)
@@ -70,7 +71,7 @@ def test_params_carry_over_names_and_values(tiny):
 def test_init_model_has_the_reference_tree_shapes_and_scales(tiny):
     _, tcfg, _, tparams, _ = tiny
     own = TM.init_model(tcfg, seed=1, device="cpu")
-    shapes = lambda tree: {"/".join(p): (tuple(v.shape), v.dtype) for p, v in tprog._walk(tree)}
+    shapes = lambda tree: {k: (tuple(v.shape), v.dtype) for k, v in flatten(tree).items()}
     assert shapes(own) == shapes(tparams)
     assert float(own["final_norm"].abs().max()) == 0.0
     assert abs(float(own["embed"]["tokens"].std()) - 0.02) < 2e-3

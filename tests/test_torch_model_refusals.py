@@ -1,6 +1,6 @@
 """PyTorch port: the model's entry points refuse configs whose blocks are not
 ported (multi-head latent attention, mamba stages, an embedding front end)
-instead of running them wrong.  Each config is the JAX package's reduced
+instead of running them wrong, and the training path refuses sLSTM stages.  Each config is the JAX package's reduced
 config carried into the port's config class, with the JAX package's
 parameter tree carried across through ``params_from_numpy`` (that tree never
 passes through the port's ``init_model``)."""
@@ -14,9 +14,11 @@ import torch
 
 from repro import configs as jconfigs
 from repro.models import model as JM
-from repro_torch.configs import ModelConfig, StageSpec
+from repro_torch.configs import ModelConfig, StageSpec, get_config, reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import model as TM
+from repro_torch.optim import adamw, constant
+from repro_torch.train import make_train_step
 
 CASES = {
     "mla": ("deepseek-v2-236b", "multi-head latent attention"),
@@ -74,3 +76,20 @@ def test_init_refuses_unported_blocks(carried, entry):
             TM.init_model(tcfg, device="cpu")
         else:
             TM.init_cache(tcfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_slstm_training_is_refused(grad):
+    """sLSTM stages do not train: on a CUDA tensor the recurrence is the scan
+    kernel, whose output has no ``grad_fn``.  ``loss_fn`` (with or without
+    grad) and ``make_train_step`` refuse the config on every device; its
+    serving forward still runs."""
+    tcfg = reduced(get_config("xlstm-350m"))
+    assert any("slstm" in s.kinds for s in tcfg.stages)
+    params = TM.init_model(tcfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, tcfg.vocab_size, size=(1, 8)))
+    with torch.set_grad_enabled(grad), pytest.raises(NotImplementedError, match="sLSTM"):
+        TM.loss_fn(params, tcfg, {"inputs": tokens, "targets": tokens})
+    with pytest.raises(NotImplementedError, match="sLSTM"):
+        make_train_step(tcfg, adamw(constant(1e-3)))
+    assert TM.forward(params, tcfg, tokens).shape == (1, 8, tcfg.vocab_size)

@@ -27,6 +27,7 @@ from repro_torch.kernels import crossbar_vmm as kvmm
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
+from repro_torch.tree import flatten
 
 KIMI = "kimi-k2-1t-a32b"
 # Digital tolerance, as for the dense models (test_torch_model): exp,
@@ -96,7 +97,7 @@ def test_init_model_has_the_reference_tree_and_scales(kimi, tiny, which):
         for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]
     }
     own = TM.init_model(tcfg, seed=1, device="cpu")
-    got = {"/".join(p): (tuple(v.shape), str(v.dtype).replace("torch.", "")) for p, v in tprog._walk(own)}
+    got = {k: (tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in flatten(own).items()}
     assert got == ref
     if which == "kimi":
         ffn = own["stage1"]["b0"]["ffn"]

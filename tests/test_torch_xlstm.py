@@ -31,6 +31,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import xlstm as TX
 from repro_torch.models.layers import CrossbarMode
 from repro_torch.serving import Request, ServingEngine
+from repro_torch.tree import flatten
 
 # The scan and the blocks: the same float32 arithmetic in another summation
 # order (XLA-CPU dot vs torch einsum) and other exp / tanh / sigmoid
@@ -203,7 +204,7 @@ def test_init_cache_matches_reference_leaf_by_leaf(tiny):
 def test_init_model_has_the_reference_tree_shapes_and_scales(tiny):
     _, tcfg, _, tparams = tiny
     own = TM.init_model(tcfg, seed=1, device="cpu")
-    shapes = lambda tree: {"/".join(p): (tuple(v.shape), v.dtype) for p, v in tprog._walk(tree)}
+    shapes = lambda tree: {k: (tuple(v.shape), v.dtype) for k, v in flatten(tree).items()}
     assert shapes(own) == shapes(tparams)
     assert "ffn" not in own["stage0"]["b0"] and "norm2" not in own["stage0"]["b1"]
     s = own["stage0"]["b1"]["mixer"]
