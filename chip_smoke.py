@@ -13,7 +13,8 @@ Phases (one JSON line each; any failure is an uncaught exception):
                kernels also at their tile edges, ragged N and K and extreme
                codes or cells (the fast one past its int32 fold too, and
                timed at every projection and head shape of the three dense
-               configs and of kimi-k2's rank share; the paper and noisy ones
+               configs, of kimi-k2's rank share and of deepseek-v2's MoE FFN
+               and its rank slices; the paper and noisy ones
                at K = 4096 and 14336), the
                scan at ragged dh, dh = 2048, 5 and 9 batch rows and one head,
                each scan case with the launch plan it ran
@@ -106,6 +107,26 @@ Phases (one JSON line each; any failure is an uncaught exception):
   moe_dispatch_card_vs_cpu  routing, slot tables and the combine from the
                same router logits (on a grid, with ties) on the card and the
                CPU: equal, at 4 and 256 tokens, with drops
+  moe_ranks_deepseek  deepseek-v2's MoE FFN at published widths (160 experts
+               top 6, 2 shared, d_model 5120, expert d_ff 1536; one layer,
+               bf16 params, the router x5.59: the logit spread of the
+               reference's x100 at d_model 16) on an ideal chip: a one-device
+               process programs it, serves a decode (4 x 1) and a prefill
+               (1 x 32) input and saves the 15.3 GB store with the EP
+               sharding of a (1, 4) mesh recorded; then 4 rank processes on
+               the card (gloo, every CUDA operand staged through host
+               memory) restore their slices with ``mesh=`` and run EP (decode,
+               prefill) and all-to-all (prefill) on a (1, 4) mesh, expert-TP
+               (decode) on a (2, 2) mesh from the same store laid out anew;
+               each body on the chip (float32 and bf16 activations) and
+               digitally (float32): K1 launches a rank asserted (124 EP, 244
+               expert-TP), each at a shape the kernels phase holds; every
+               digital body and EP on the chip within 5e-3 of the one-device
+               run; every chip run within DEEPSEEK_CHIP_GATE of the digital
+               run routed as it routed (router logits and output), and three
+               planted faults (zeroed colsums, another rank's banks under
+               expert-TP and all-to-all) outside it; spawn / restore /
+               forward seconds, peak GB a rank, the collectives' wire bytes
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
                (ideal, paper, noisy, planned, xlstm, gemma2, minitron,
                starcoder2, kimi), and 24 ticks of serve_traffic's mix (traffic):
@@ -210,12 +231,14 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -230,7 +253,7 @@ from repro_torch.core.crossbar import CrossbarSpec, DEFAULT_SPEC, layer_scaled_s
 from repro_torch.core.karatsuba import karatsuba_vmm  # noqa: E402
 from repro_torch.core.planner import LayerPlan, plan_model  # noqa: E402
 from repro_torch.core.strassen import strassen_matmul  # noqa: E402
-from repro_torch.checkpoint import active_slot, latest_step  # noqa: E402
+from repro_torch.checkpoint import active_slot, latest_step, restore_programmed, save_programmed  # noqa: E402
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.device import DeviceConfig, effective_cell_codes  # noqa: E402
 from repro_torch.device import programmed as tprog  # noqa: E402
@@ -241,10 +264,13 @@ from repro_torch.kernels.crossbar_vmm import crossbar_vmm_cuda, crossbar_vmm_pla
 from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda, noisy_vmm_plain  # noqa: E402
 from repro_torch.kernels import slstm_scan as kscan  # noqa: E402
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_plain  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_local_mesh, run_ranks  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import ExpertShare, expert_share  # noqa: E402
-from repro_torch.models.layers import CrossbarMode, crossbar_misses, crossbar_mode, reset_crossbar_misses  # noqa: E402
+from repro_torch.models.layers import (  # noqa: E402
+    CrossbarMode, crossbar_misses, crossbar_mode, layout_overrides, reset_crossbar_misses, use_mesh,
+)
 from repro_torch.optim import Optimizer, cosine_with_warmup, make_optimizer  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     BlockCacheConfig, ChipFarm, ContinuousBatchingScheduler, ModelRunner, Request, ServingEngine,
@@ -344,6 +370,69 @@ KIMI_SHAPES = [
 # the kimi rows timed (the rest, prefill_vs_eager_kimi's buckets past 32,
 # are held to the plain version untimed)
 KIMI_TIMED_M = (1, 4, 8, 32)
+# moe_ranks_deepseek: deepseek-v2's MoE FFN at published widths (160
+# experts top 6 + 2 shared, d_model 5120, expert d_ff 1536), one layer on an
+# ideal chip, over 4 rank processes sharing the card by gloo (NCCL refuses
+# two ranks on one GPU): EP and all-to-all on a (1, 4) mesh, expert-TP on a
+# (2, 2) mesh; (B, S) of a decode tick and a prefill.  The router is scaled
+# so its logits have the spread of the reference's sharded tests (x100 at
+# d_model 16; the router is drawn at 0.02 a weight, so its logits' std grows
+# as sqrt(d_model): x100 * sqrt(16 / 5120), a logit std of ~8)
+DEEPSEEK, DEEPSEEK_RANKS, DEEPSEEK_BACKEND = "deepseek-v2-236b", 4, "gloo"
+DEEPSEEK_DECODE, DEEPSEEK_PREFILL = (4, 1), (1, 32)
+DEEPSEEK_ROUTER_SCALE = 100.0 * math.sqrt(16 / 5120)
+# EP and every digital body are held to the reference's bar against the
+# one-device run (EP quantizes one device's buffers; a digital body differs
+# only in its sums' order)
+DEEPSEEK_REL_MAX = 5e-3
+# The all-to-all and expert-TP ranks quantize buffers of their own (each
+# call's input shift and scale are its buffer's), and at K = 5120 the ideal
+# chip's 16-bit output codes carry a projection to ~2 % of its signal: a
+# router logit moves by ~0.1-0.2, which reorders close experts and
+# reweights the rest, so two sound layouts of the chip part by far more
+# than 5e-3.  Every chip run (one device's and each body's) is held instead
+# to the digital run of the same body routed as the chip run routed (its
+# top-k ids and gates): max |dlogits| / max |logits| of the router, and
+# max |dy| / max |y|, each at most its limit here.  The limits sit between
+# the sound runs' readings on the H100 (logits 0.021-0.042, y 0.065-0.128)
+# and the planted faults' (DEEPSEEK_PLANTS: a zeroed colsum reads logits
+# 3.3, y 114; swapped banks y 1.2-2.3), which each run must fail.
+DEEPSEEK_CHIP_GATE = {"router_logits": 0.2, "y_same_routing": 0.4}
+# (datapath, activations) each body runs in.  "chip": the programmed chip,
+# K1 on every projection; "digital": the same bodies with the crossbar off
+# in float32 (the bf16 params widened exactly): dispatch, collectives and
+# combine at published widths.
+DEEPSEEK_RUNS = (("chip", torch.float32), ("chip", torch.bfloat16), ("digital", torch.float32))
+# (body, mesh, layout, dispatch, input) the rank phase runs, in order
+DEEPSEEK_BODIES = (
+    ("ep/decode", (1, 4), "ep_only", "allreduce", DEEPSEEK_DECODE),
+    ("ep/prefill", (1, 4), "ep_only", "allreduce", DEEPSEEK_PREFILL),
+    ("alltoall/prefill", (1, 4), "ep_only", "alltoall", DEEPSEEK_PREFILL),
+    ("expert_tp/decode", (2, 2), "expert_tp", "allreduce", DEEPSEEK_DECODE),
+)
+# faults planted in the chip runs (float32) of a body, each of which the
+# gate above must catch: (name, body, fault).  "zeroed_colsum": every
+# K-partial projection (router and banks) served without its local column
+# sums; "swapped_banks": the banks restored as another rank's slices (the
+# other model rank's rows under expert-TP, the next rank's experts under
+# EP), the router sound
+DEEPSEEK_PLANTS = (
+    ("expert_tp/zeroed_colsum", "expert_tp/decode", "zeroed_colsum"),
+    ("expert_tp/swapped_banks", "expert_tp/decode", "swapped_banks"),
+    ("alltoall/swapped_banks", "alltoall/prefill", "swapped_banks"),
+)
+# deepseek's projections on the fast kernel (K x N: rows), each at the rows
+# a run of moe_ranks_deepseek gives it (the phase asserts it launched no
+# other): an expert's wi / wg and wo at the capacity of a decode tick (8
+# slots) and of a prefill (32; an all-to-all rank's 4 sources x 8); their
+# expert-TP row slices at 2 data ranks x 8 slots; the router at a decode
+# tick, an all-to-all rank's 8-token block and a prefill, its expert-TP
+# slice at a data rank's 2 tokens; the shared expert (2 x 1536 wide), which
+# every rank runs on every token, at a decode tick and a prefill
+DEEPSEEK_SHAPES = [
+    ((5120, 1536), (8, 32)), ((1536, 5120), (8, 32)), ((2560, 1536), (16,)), ((768, 5120), (16,)),
+    ((5120, 160), (4, 8, 32)), ((2560, 160), (2,)), ((5120, 3072), (4, 32)), ((3072, 5120), (4, 32)),
+]
 # moe_expert_chips: one full-width MoE FFN of the rank share of EP48 (8
 # experts) on NOISY_DEVICE, one chip identity an expert, at these token
 # counts
@@ -719,6 +808,14 @@ def kernels_phase(dev, quick: bool):
                         sparse=False, skip=True, seed=6000 + len(cases), dev=dev, timed=M in KIMI_TIMED_M,
                     ))
                     torch.cuda.empty_cache()
+            # deepseek-v2's MoE projections, whole and as rank slices (seeds
+            # of their own)
+            for (K, N), rows in (DEEPSEEK_SHAPES[:1] if quick else DEEPSEEK_SHAPES):
+                for M in (rows[:1] if quick else rows):
+                    cases.append(run_case(
+                        kind, f"{tag}/{DEEPSEEK}", M, K, N, layer_scaled_spec(base, K), cfg,
+                        sparse=False, skip=True, seed=6800 + len(cases), dev=dev, timed=True,
+                    ))
             if not quick:
                 # the trained chip's loss (train_then_serve): every projection
                 # at the training batch's B x S rows, the tied head at one loss
@@ -1701,6 +1798,389 @@ def moe_dispatch_card_vs_cpu(dev, seed):
     require(line["all_equal"], f"moe_dispatch_card_vs_cpu: {cases}")
     require(any(c["kept"] < c["local_assignments"] for c in cases), "moe_dispatch_card_vs_cpu: nothing dropped")
     return line
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2's MoE FFN over rank processes
+# ---------------------------------------------------------------------------
+
+def deepseek_config(layout, dispatch="allreduce"):
+    """deepseek-v2 under ``layout``, capacity factor E / k: every expert has
+    a slot for every token, so no run drops an assignment.  The all-to-all
+    body bounds each (source rank, expert) pair by its own capacity (GShard),
+    one device each expert over all tokens, so at the config's 1.25 the two
+    drop different assignments (the reference's mesh tests uncap it too)."""
+    cfg = get_config(DEEPSEEK)
+    return dataclasses.replace(cfg, layout=layout, moe_dispatch=dispatch,
+                               moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+
+
+def deepseek_params(cfg, seed, dev):
+    """One layer of deepseek-v2's MoE FFN from ``moe.init_moe`` (bf16; a
+    bank drawn one expert slab at a time, so the float32 draw is one slab's),
+    under the artifact scope "moe"; the router scaled by
+    ``DEEPSEEK_ROUTER_SCALE``.  Every process draws the same tensors."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(shape, scale):
+        out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        for i in range(shape[0]):
+            out[i] = (torch.randn(shape[1:], generator=gen, device=dev) * scale).to(torch.bfloat16)
+        return out
+
+    ffn = moe_mod.init_moe(cfg, 1, draw)
+    ffn["router"] = ffn["router"] * DEEPSEEK_ROUTER_SCALE
+    return {"moe": ffn}
+
+
+def deepseek_input(cfg, shape, seed, dev, dtype):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1000 + shape[0] * 100 + shape[1])
+    return torch.randn((*shape, cfg.d_model), generator=gen, device=dev).to(dtype)
+
+
+@contextlib.contextmanager
+def zeroed_partial_colsums():
+    """A planted fault: every ``programmed_linear`` call given local column
+    sums (expert-TP's K-partial projections) served with zeros instead."""
+    real = tprog.programmed_linear
+
+    def planted(x, art, colsum=None):
+        return real(x, art, colsum=None if colsum is None else torch.zeros_like(colsum))
+
+    tprog.programmed_linear = planted
+    try:
+        yield
+    finally:
+        tprog.programmed_linear = real
+
+
+def deepseek_layer(params, chip, cfg, mesh, x, fault=None, forced=None):
+    """The MoE FFN from ``chip`` (its layer-0 views bound under "moe"; None:
+    the crossbar off, the params widened to ``x``'s dtype), under ``mesh``
+    when given, with ``fault`` planted ("zeroed_colsum") when given, routed
+    by ``forced`` (a ``deepseek_result`` of the same rank: its top-k ids and
+    gates in place of the run's own, whose logits are still computed) when
+    given: (y, (this rank's router logits, top-k ids, gates), K1 launches,
+    the (M, K, N) K1 launched at, device-synchronised seconds)."""
+    routes, shapes = [], set()
+    real_route, real_vmm = moe_mod.route_from_logits, tprog.crossbar_vmm_cuda
+
+    def spy(logits, cfg_, dtype):
+        out = real_route(logits, cfg_, dtype)
+        routes.append(tuple(t.reshape(-1, t.shape[-1]).float().cpu() for t in (logits, *out[:2])))
+        if forced is not None:
+            out = (torch.from_numpy(forced["route"]).to(out[0].device).reshape(out[0].shape),
+                   torch.from_numpy(forced["gates"]).to(out[1].device, dtype).reshape(out[1].shape), out[2])
+        return out
+
+    def vmm_spy(xq, w_codes, *args, **kwargs):
+        shapes.add((xq.numel() // xq.shape[-1], int(w_codes.shape[-2]), int(w_codes.shape[-1])))
+        return real_vmm(xq, w_codes, *args, **kwargs)
+
+    kvmm.reset_counters()
+    reset_crossbar_misses()
+    ffn = {k: (v[0] if chip is not None else v[0].to(x.dtype)) for k, v in params["moe"].items()}
+    mode = CrossbarMode(enabled=True, programmed=chip, strict=True) if chip is not None else CrossbarMode()
+    planted = zeroed_partial_colsums() if fault == "zeroed_colsum" else contextlib.nullcontext()
+    moe_mod.route_from_logits, tprog.crossbar_vmm_cuda = spy, vmm_spy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with planted, crossbar_mode(mode), use_mesh(mesh, layout_overrides(cfg) if mesh is not None else None), \
+                tprog._push_bind_map(chip.stage_layer_maps("moe")[0] if chip is not None else {}), \
+                tprog.name_scope("moe"):
+            y = moe_mod.moe_ffn(ffn, x, cfg)
+        torch.cuda.synchronize()
+    finally:
+        moe_mod.route_from_logits, tprog.crossbar_vmm_cuda = real_route, real_vmm
+    require(crossbar_misses() == (), f"moe_ranks_deepseek: artifact misses {crossbar_misses()}")
+    require(len(routes) == 1, f"moe_ranks_deepseek: {len(routes)} routings in one layer")
+    return y, routes[0], dict(kvmm.LAUNCHES), sorted(shapes), time.perf_counter() - t0
+
+
+def deepseek_result(run):
+    """The host copy of a ``deepseek_layer`` result."""
+    y, (logits, route, gates), launches, shapes, sec = run
+    return dict(y=y.float().cpu().numpy(), logits=logits.numpy(), route=route.to(torch.int64).numpy(),
+                gates=gates.numpy(), launches=launches["fast"], shapes=shapes, seconds=sec)
+
+
+def deepseek_one_device(rank, store_dir, seed, device):
+    """The one-device run, in a process of its own: the MoE FFN programmed
+    whole, served at the decode and prefill inputs, and saved to the store
+    with the EP layout of a (1, ``DEEPSEEK_RANKS``) mesh recorded."""
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = deepseek_config("ep_only")
+    t0 = time.perf_counter()
+    params = deepseek_params(cfg, seed, dev)
+    torch.cuda.synchronize()
+    out = dict(params_seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    chip = tprog.program_model(params, device=dev)
+    torch.cuda.synchronize()
+    out["program_seconds"] = time.perf_counter() - t0
+    out["chip_gb"] = sum(
+        getattr(a, f).numel() * getattr(a, f).element_size()
+        for a in chip.by_name.values() for f in tprog.ARTIFACT_ARRAY_FIELDS if getattr(a, f) is not None
+    ) / 1e9
+    for name, shape in (("decode", DEEPSEEK_DECODE), ("prefill", DEEPSEEK_PREFILL)):
+        for path, dt in DEEPSEEK_RUNS:
+            x = deepseek_input(cfg, shape, seed, dev, dt)
+            served = chip if path == "chip" else None
+            deepseek_layer(params, served, cfg, None, x)  # warm
+            out[(name, path, dt)] = deepseek_result(deepseek_layer(params, served, cfg, None, x))
+        x = deepseek_input(cfg, shape, seed, dev, torch.float32)
+        for path, dt in DEEPSEEK_RUNS:
+            if path == "chip":  # the digital run on the chip run's routing
+                out[(name, "forced", dt)] = deepseek_result(
+                    deepseek_layer(params, None, cfg, None, x, forced=out[(name, path, dt)]))
+    mesh = Mesh((1, DEEPSEEK_RANKS), ("data", "model"))
+    t0 = time.perf_counter()
+    save_programmed(store_dir, tprog.shard_artifacts(chip, mesh, moe_mod.param_specs(params, cfg, mesh)))
+    out["save_seconds"] = time.perf_counter() - t0
+    with open(os.path.join(store_dir, "programmed", "manifest.json")) as f:
+        out["recorded"] = json.load(f)["artifacts"]["moe/wi"]["sharding"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def deepseek_rank(rank, store_dir, seed, t_spawn, device):
+    """One rank: its slices restored from the store with ``mesh=`` (by the
+    recorded EP spec on a (1, 4) mesh; laid out anew by the expert-TP specs
+    on a (2, 2) mesh), its params ``moe.rank_params`` of the one-device
+    run's, then the bodies of ``DEEPSEEK_BODIES``, each warmed once then
+    timed, each body's ``DEEPSEEK_PLANTS`` right after it (a swapped chip:
+    the banks restored by the next model rank's coordinates, the router the
+    sound slice)."""
+    up_s = time.time() - t_spawn
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {(1, 4): make_local_mesh(1, 4), (2, 2): make_local_mesh(2, 2)}
+    whole = deepseek_params(deepseek_config("ep_only"), seed, dev)
+    params = {
+        (shape, layout): moe_mod.rank_params(whole, deepseek_config(layout), meshes[shape])
+        for _, shape, layout, _, _ in DEEPSEEK_BODIES
+    }
+    specs = {shape: moe_mod.param_specs(whole, deepseek_config(layout), meshes[shape])
+             for _, shape, layout, _, _ in DEEPSEEK_BODIES}
+    layouts = {shape: layout for _, shape, layout, _, _ in DEEPSEEK_BODIES}
+    del whole
+    torch.cuda.empty_cache()
+    out = dict(spawn_seconds=up_s, bodies={}, plants={}, restore_seconds={})
+    held = dict(chip=None, key=None, router={})
+
+    def chip_for(shape, swapped):
+        if held["key"] == (shape, swapped):
+            return held["chip"]
+        held["chip"] = None
+        torch.cuda.empty_cache()
+        mesh = meshes[shape]
+        # the EP mesh restores by the recorded spec; expert-TP lays it out anew
+        laid = specs[shape] if layouts[shape] == "expert_tp" else None
+        t0 = time.perf_counter()
+        if swapped:
+            other = dict(mesh.coords, model=(mesh.coords["model"] + 1) % mesh.shape["model"])
+            chip = restore_programmed(store_dir, device=dev, mesh=SimpleNamespace(shape=mesh.shape, coords=other),
+                                      specs=laid)
+            chip = tprog.ProgrammedModel({"moe": dict(chip.artifacts["moe"], router=held["router"][shape])})
+        else:
+            chip = restore_programmed(store_dir, device=dev, mesh=mesh, specs=laid)
+            held["router"][shape] = chip.artifacts["moe"]["router"]
+            out["restore_seconds"][f"{shape[0]}x{shape[1]}"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        held.update(chip=chip, key=(shape, swapped))
+        return chip
+
+    for name, shape, layout, dispatch, x_shape in DEEPSEEK_BODIES:
+        mesh, cfg = meshes[shape], deepseek_config(layout, dispatch)
+        for path, dt in DEEPSEEK_RUNS:
+            x = deepseek_input(cfg, x_shape, seed, dev, dt)
+            served = chip_for(shape, False) if path == "chip" else None
+            deepseek_layer(params[(shape, layout)], served, cfg, mesh, x)  # warm
+            out["bodies"][(name, path, dt)] = dict(
+                deepseek_result(deepseek_layer(params[(shape, layout)], served, cfg, mesh, x)),
+                coords=mesh.coords, bank=list(chip_for(shape, False).by_name["moe/wi"].shape),
+            )
+        x = deepseek_input(cfg, x_shape, seed, dev, torch.float32)
+        # the digital run on each chip run's routing
+        for path, dt in DEEPSEEK_RUNS:
+            if path == "chip":
+                out["bodies"][(name, "forced", dt)] = deepseek_result(deepseek_layer(
+                    params[(shape, layout)], None, cfg, mesh, x, forced=out["bodies"][(name, path, dt)]))
+        for plant, body, fault in DEEPSEEK_PLANTS:
+            if body == name:
+                served = chip_for(shape, fault == "swapped_banks")
+                run = deepseek_result(deepseek_layer(params[(shape, layout)], served, cfg, mesh, x, fault=fault))
+                out["plants"][plant] = dict(run, coords=mesh.coords, forced=deepseek_result(
+                    deepseek_layer(params[(shape, layout)], None, cfg, mesh, x, forced=run)))
+    out["traffic"] = {f"{k[0]}x{k[1]}": m.traffic for k, m in meshes.items()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _routes_of(body, res):
+    """The body's routing of every token, in token order, from its ranks'
+    results ``res``: EP routes every token on every rank; all-to-all a
+    sequence block a rank (model order); expert-TP a batch block a data
+    rank."""
+    if body.startswith("ep/"):
+        return res[0]["route"]
+    if body.startswith("alltoall/"):
+        return np.concatenate([r["route"] for r in res])  # B = 1
+    return np.concatenate([r["route"] for r in res if r["coords"]["model"] == 0])
+
+
+def _alike(y, route, y_ref, route_ref):
+    """Against a reference run: the share of tokens routed to the same
+    experts, and on those max |y - y_ref| / max |y_ref| (None: no token)."""
+    same = np.array([set(a) == set(b) for a, b in zip(route.tolist(), route_ref.tolist())])
+    same = same.reshape(y_ref.shape[:2])
+    rel = float(np.max(np.abs(y - y_ref)[same]) / np.max(np.abs(y_ref))) if same.any() else None
+    return dict(tokens_routed_alike=float(same.mean()), max_abs_diff_over_max_abs_y_routed_alike=rel)
+
+
+def _chip_reading(chip, forced):
+    """A chip run against the digital run on its routing (``chip`` /
+    ``forced``: the runs' results, one a rank): max |dlogits| / max |logits|
+    of the router (the worst rank), and max |dy| / max |y|."""
+    logits = max(float(np.max(np.abs(c["logits"] - f["logits"])) / np.max(np.abs(f["logits"])))
+                 for c, f in zip(chip, forced))
+    y = float(np.max(np.abs(chip[0]["y"] - forced[0]["y"])) / np.max(np.abs(forced[0]["y"])))
+    return dict(router_logits=logits, y_same_routing=y)
+
+
+def _chip_sound(reading):
+    """The chip gate (``DEEPSEEK_CHIP_GATE``)."""
+    return all(reading[k] <= v for k, v in DEEPSEEK_CHIP_GATE.items())
+
+
+def moe_ranks_deepseek(dev, seed):
+    """deepseek-v2's MoE FFN at published widths over ``DEEPSEEK_RANKS``
+    rank processes on the card (``DEEPSEEK_BACKEND``), from rank slices of
+    one programmed chip whose store keeps its sharding: the one-device run
+    in a process of its own, then the ranks' bodies.  EP and every digital
+    body within ``DEEPSEEK_REL_MAX`` of the one-device run; every chip run
+    (one device's and each body's) within ``DEEPSEEK_CHIP_GATE`` of the
+    digital run on its routing, every planted fault outside it; K1's
+    launches on every rank asserted, and each at a shape of
+    ``DEEPSEEK_SHAPES``.  The line is printed before the checks fail the
+    phase.  Returns the launches of the path."""
+    t_phase = time.perf_counter()
+    cfg = deepseek_config("ep_only")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="deepseek_store_") as store:
+        t0 = time.perf_counter()
+        one = run_ranks(deepseek_one_device, 1, (store, seed, str(dev)), backend=DEEPSEEK_BACKEND, timeout_s=200)[0]
+        one_s = time.perf_counter() - t0
+        store_gb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(store) for f in fs) / 1e9
+        t0 = time.perf_counter()
+        ranks = run_ranks(deepseek_rank, DEEPSEEK_RANKS, (store, seed, time.time(), str(dev)),
+                          backend=DEEPSEEK_BACKEND, timeout_s=240)
+        ranks_s = time.perf_counter() - t0
+    fails = []
+    per_ffn = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    shared = per_ffn if cfg.moe_shared_experts else 0
+    want_one = 1 + per_ffn * cfg.moe_experts + shared
+    f32 = torch.float32
+    chip_runs = [v["launches"] for k, v in one.items() if isinstance(k, tuple) and k[1] == "chip"]
+    if any(n != want_one for n in chip_runs):
+        fails.append(f"one device ran {chip_runs} K1 launches a forward, expected {want_one}")
+    one_chip = {}
+    for name in ("decode", "prefill"):
+        digital = one[(name, "digital", f32)]
+        for dt in (f32, torch.bfloat16):
+            run = one[(name, "chip", dt)]
+            one_chip[f"{name}/{str(dt).replace('torch.', '')}"] = reading = dict(
+                _chip_reading([run], [one[(name, "forced", dt)]]),
+                **_alike(run["y"], run["route"], digital["y"], digital["route"]),
+            )
+            if not _chip_sound(reading):
+                fails.append(f"one device {name} chip/{dt}: {reading}")
+    bodies, total = {}, sum(chip_runs)
+    shapes = {tuple(s) for v in one.values() if isinstance(v, dict) and "shapes" in v for s in v["shapes"]}
+    for name, shape, layout, dispatch, x_shape in DEEPSEEK_BODIES:
+        n_local = cfg.moe_experts // (shape[0] if layout == "expert_tp" else shape[1])
+        want = 1 + per_ffn * n_local + shared
+        entry = dict(mesh=list(shape), layout=layout, dispatch=dispatch, input=list(x_shape),
+                     experts_per_rank=n_local, bank_per_rank=ranks[0]["bodies"][(name, "chip", f32)]["bank"])
+        for path, dt in DEEPSEEK_RUNS:
+            key = (name, path, dt)
+            res = [r["bodies"][key] for r in ranks]
+            ref = one[(name.split("/")[1], path, dt)]
+            ys = [r["y"] for r in res]
+            route = _routes_of(name, res)
+            rel = float(np.max(np.abs(ys[0] - ref["y"])) / np.max(np.abs(ref["y"])))
+            run = f"{path}/{str(dt).replace('torch.', '')}"
+            entry[run] = dict(
+                max_abs_diff_over_max_abs_y=rel,
+                routing_choices_agree=float(np.mean([len(set(a) & set(b)) / len(a)
+                                                     for a, b in zip(route.tolist(), ref["route"].tolist())])),
+                **_alike(ys[0], route, ref["y"], ref["route"]),
+                k1_launches_per_rank=[r["launches"] for r in res],
+                forward_seconds_per_rank=[r["seconds"] for r in res], one_device_seconds=ref["seconds"],
+                ranks_equal=all(np.array_equal(y, ys[0]) for y in ys), finite=bool(np.isfinite(ys[0]).all()),
+            )
+            shapes.update(tuple(s) for r in res for s in r["shapes"])
+            total += sum(r["launches"] for r in res)
+            if any(r["launches"] != (want if path == "chip" else 0) for r in res):
+                fails.append(f"{name} {run}: K1 launches a rank {[r['launches'] for r in res]}, "
+                             f"expected {want if path == 'chip' else 0}")
+            if not (entry[run]["finite"] and entry[run]["ranks_equal"] and ys[0].shape == ref["y"].shape):
+                fails.append(f"{name} {run}: outputs not finite, of another shape or differing across ranks")
+            if path == "digital" or (name.startswith("ep/") and dt == f32):
+                entry[run]["gate"] = f"one device: {DEEPSEEK_REL_MAX}"
+                if not rel < DEEPSEEK_REL_MAX:
+                    fails.append(f"{name} {run}: {rel} from the one-device run")
+            if path == "chip":
+                entry[run]["vs_digital_same_routing"] = reading = _chip_reading(
+                    res, [r["bodies"][(name, "forced", dt)] for r in ranks])
+                entry[run]["gate"] = (entry[run].get("gate", "") + "; " if "gate" in entry[run] else "") + "chip"
+                if not _chip_sound(reading):
+                    fails.append(f"{name} {run} against the digital run on its routing: {reading}")
+        bodies[name] = entry
+    plants = {}
+    for plant, body, fault in DEEPSEEK_PLANTS:
+        res = [r["plants"][plant] for r in ranks]
+        plants[plant] = dict(body=body, fault=fault, **_chip_reading(res, [r["forced"] for r in res]))
+        plants[plant]["caught"] = not _chip_sound(plants[plant])
+        shapes.update(tuple(s) for r in res for s in r["shapes"])
+        total += sum(r["launches"] for r in res)
+        if not plants[plant]["caught"]:
+            fails.append(f"planted fault {plant} passed the chip gate: {plants[plant]}")
+    covered = {(M, K, N) for (K, N), rows in DEEPSEEK_SHAPES for M in rows}
+    if not shapes <= covered:
+        fails.append(f"K1 launched at (M, K, N) {sorted(shapes - covered)}, not held in the kernels phase")
+    traffic = ranks[0]["traffic"]
+    line = dict(
+        phase="moe_ranks_deepseek", arch=DEEPSEEK, ranks=DEEPSEEK_RANKS, backend=DEEPSEEK_BACKEND,
+        widths=dict(d_model=cfg.d_model, experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                    shared_experts=cfg.moe_shared_experts, expert_d_ff=cfg.moe_d_ff, mlp=cfg.mlp_kind),
+        chip="ideal", router_scale=DEEPSEEK_ROUTER_SCALE, params="bfloat16",
+        capacity_factor=cfg.moe_capacity_factor,
+        gates=dict(one_device=DEEPSEEK_REL_MAX, chip=DEEPSEEK_CHIP_GATE),
+        bodies=bodies, one_device_chip_vs_digital=one_chip, plants=plants, k1_shapes=sorted(shapes),
+        one_device=dict(
+            seconds=one_s, params_seconds=one["params_seconds"], program_seconds=one["program_seconds"],
+            save_seconds=one["save_seconds"], chip_gb=one["chip_gb"], store_gb=store_gb, peak_gb=one["peak_gb"],
+            k1_launches_per_forward=want_one, recorded_sharding_of_wi=one["recorded"],
+        ),
+        ranks_seconds=ranks_s, spawn_seconds_per_rank=[r["spawn_seconds"] for r in ranks],
+        restore_seconds_per_rank=[r["restore_seconds"] for r in ranks],
+        peak_gb_per_rank=[r["peak_gb"] for r in ranks],
+        wire=traffic,
+        staged_through_host=sorted({c for t in traffic.values() for c, by in t.items()
+                                    if any(v["staged"] for v in by.values())}),
+        fails=fails, seconds=time.perf_counter() - t_phase,
+    )
+    emit(line)
+    require(not fails, f"moe_ranks_deepseek: {fails}")
+    launches = {k: 0 for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
+    launches["fast"] = total
+    return launches
 
 
 def tick_profile(phase, eng, prompts, ticks=3):
@@ -3534,6 +4014,8 @@ def main() -> int:
     by_path["serve_kimi"] = serve_kimi(dev, args.seed + 50, args.quick)
     by_path["moe_expert_chips"] = moe_expert_chips(dev, args.seed + 51)
     moe_dispatch_card_vs_cpu(dev, args.seed + 52)
+    # deepseek-v2's MoE FFN at published widths over 4 rank processes
+    by_path["moe_ranks_deepseek"] = moe_ranks_deepseek(dev, args.seed + 53)
     # training: smollm-360m at full width on the card, its trained weights
     # then served from an ideal chip, and the launcher as a user runs it
     tcfg = get_config("smollm-360m")

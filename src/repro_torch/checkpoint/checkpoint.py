@@ -20,6 +20,14 @@ clock, the ``LayerPlan`` as its field dict).  It is read and written with
 numpy and json alone; a chip programmed and saved by either package restores
 bit-for-bit in the other, plans included.
 
+A placed chip (``device.programmed.shard_artifacts``) records each
+artifact's placement in the manifest's ``sharding`` entry, in the
+reference's encoding (``{field: [entry, ...]}``, a tuple entry as a list);
+a restore without a mesh keeps the record on the artifact, so a store passes
+through and is written back with it.  ``restore_programmed(mesh=)`` gives
+the calling rank its slice by the recorded spec (``local_fields``), reading
+only the slice's bytes of each ``.npz`` member, one artifact at a time.
+
 Layout: ``<dir>/programmed/`` (unslotted), or the double-buffered
 ``<dir>/programmed.slotA`` / ``.slotB`` with the ``<dir>/programmed.ACTIVE``
 pointer naming the live slot (``swap_active`` commits a slot).
@@ -30,8 +38,10 @@ import dataclasses as dc
 import json
 import os
 import shutil
+import struct
 import threading
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
@@ -47,6 +57,7 @@ from repro_torch.device.programmed import (
     ARTIFACT_ARRAY_FIELDS,
     ProgrammedLinear,
     ProgrammedModel,
+    local_fields,
 )
 from repro_torch.device.repair import RepairReport
 from repro_torch.convert import tensor_to_numpy
@@ -93,6 +104,49 @@ def _decode_plan(obj: dict) -> LayerPlan:
     """Rebuild a ``core.planner.LayerPlan`` from its manifest dict (an
     unknown datapath or ADC mode raises ``ValueError``)."""
     return LayerPlan(**obj)
+
+
+def _encode_pspec(spec) -> list:
+    """JSON-encode a spec's entries (None / str / tuple of str)."""
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _decode_pspec(entries) -> Tuple[Any, ...]:
+    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+
+
+def _artifact_shardings(art: ProgrammedLinear) -> Optional[Dict[str, list]]:
+    """The manifest's ``sharding`` entry: {field: encoded spec} of the
+    artifact's placement record, None for an unplaced chip."""
+    if not art.sharding:
+        return None
+    return {f: _encode_pspec(spec) for f, spec in art.sharding.items()}
+
+
+def _npz_members(path: str) -> Dict[str, np.ndarray]:
+    """{member: array} of a store's ``.npz``.  ``np.savez`` stores members
+    uncompressed, so each is opened as a read-only memory map at its
+    ``.npy`` payload (the zip local header, then the array header): slicing
+    it reads only the slice's bytes.  A compressed member is read whole."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            name = info.filename[:-4] if info.filename.endswith(".npy") else info.filename
+            if info.compress_type != zipfile.ZIP_STORED:
+                with zf.open(info) as m:
+                    out[name] = np.lib.format.read_array(m)
+                continue
+            f.seek(info.header_offset)
+            local = f.read(30)
+            if local[:4] != b"PK\x03\x04":
+                raise ValueError(f"{path}: bad zip local header for {info.filename}")
+            n_name, n_extra = struct.unpack("<HH", local[26:30])
+            f.seek(info.header_offset + 30 + n_name + n_extra)
+            version = np.lib.format.read_magic(f)
+            read_header = np.lib.format.read_array_header_1_0 if version == (1, 0) else np.lib.format.read_array_header_2_0
+            shape, fortran, dtype = read_header(f)
+            out[name] = np.memmap(path, dtype=dtype, mode="r", shape=shape, offset=f.tell(), order="F" if fortran else "C")
+    return out
 
 
 def _active_pointer(directory: str) -> str:
@@ -173,7 +227,7 @@ def save_programmed(
             "fast": bool(art.fast),
             "report": _encode_aux(art.report),
             "repair": _encode_aux(art.repair),
-            "sharding": None,
+            "sharding": _artifact_shardings(art),
             "device": (dc.asdict(art.device) if art.device is not None else None),
             "t_service_s": float(art.t_service_s),
             "plan": (dc.asdict(art.plan) if art.plan is not None else None),
@@ -190,10 +244,21 @@ def save_programmed(
     return final
 
 
-def restore_programmed(directory: str, device="cuda", slot: Optional[str] = None) -> ProgrammedModel:
+def restore_programmed(
+    directory: str, device="cuda", slot: Optional[str] = None, mesh=None, specs: Optional[Dict[str, Any]] = None,
+) -> ProgrammedModel:
     """Load a ``save_programmed`` store into a ``ProgrammedModel`` on
     ``device``.  The artifact tree is rebuilt as nested dicts from the
     canonical names; no parameter tree is needed.
+
+    ``mesh`` (a ``launch.mesh.Mesh`` with a rank): each artifact is this
+    rank's slice (``device.programmed.local_fields``) by the weight spec its
+    record holds (the record's ``w_codes`` entry), or by ``specs[name]``
+    where ``specs`` names it: the same chip laid out anew, as a deployment
+    that serves it in another layout does.  Entries whose axes the mesh
+    lacks or whose dims they do not divide are replicated
+    (``dividing_pspec``).  A slice carries no placement record; without a
+    mesh every artifact keeps the record the store holds.
 
     ``slot``: read a specific double-buffer slot.  Default (None) follows the
     ``ACTIVE`` pointer when one exists and falls back to the unslotted layout
@@ -223,8 +288,14 @@ def restore_programmed(directory: str, device="cuda", slot: Optional[str] = None
         manifest = json.load(f)
     tree: Dict[str, Any] = {}
     for name, info in manifest["artifacts"].items():
-        with np.load(os.path.join(d, info["file"])) as z:
-            arrays = {k: torch.from_numpy(np.array(z[k])).to(device) for k in z.files}
+        record = {f: _decode_pspec(e) for f, e in (info.get("sharding") or {}).items()}
+        arrays = _npz_members(os.path.join(d, info["file"]))
+        if mesh is not None:
+            wspec = specs[name] if specs is not None and name in specs else record.get("w_codes")
+            if wspec is not None:
+                arrays = local_fields(arrays, wspec, mesh.shape, mesh.coords)
+            record = {}
+        arrays = {k: torch.from_numpy(np.array(v)).to(device) for k, v in arrays.items()}
         art = ProgrammedLinear(
             w_codes=arrays["w_codes"],
             g_eff=arrays.get("g_eff"),
@@ -242,6 +313,7 @@ def restore_programmed(directory: str, device="cuda", slot: Optional[str] = None
             device=(DeviceConfig(**info["device"]) if info.get("device") is not None else None),
             t_service_s=float(info.get("t_service_s", 0.0)),
             plan=(_decode_plan(info["plan"]) if info.get("plan") is not None else None),
+            sharding=(record or None),
         )
         node = tree
         parts = name.split("/")

@@ -11,7 +11,9 @@ its 16-bit pattern (``uint16``), since numpy has no bfloat16 of its own.
 An MoE model's expert banks — ``wi`` / ``wg`` / ``wo`` leaves of shape (L, E,
 K, N), and the artifacts programmed from them — can be carried as one
 ``models.moe.ExpertShare``'s slice of the expert axis, so that a device
-receives only the experts it holds.
+receives only the experts it holds: the rank's slice under the EP layout
+(``moe.BANK_SPEC``), cut by ``device.programmed.local_slice`` /
+``local_fields`` as any rank-local artifact is.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.device.programmed import ARTIFACT_ARRAY_FIELDS, ProgrammedLinear
-from repro_torch.models.moe import ExpertShare
+from repro_torch.device.programmed import ARTIFACT_ARRAY_FIELDS, ProgrammedLinear, local_fields, local_slice
+from repro_torch.models.moe import BANK_SPEC, ExpertShare
 from repro_torch.tree import tree_map
 
 _BANKS = ("wi", "wg", "wo")
@@ -53,12 +55,10 @@ def tree_to_numpy(tree: Any) -> Any:
     return tree_map(tensor_to_numpy, tree)
 
 
-def expert_slice(n_experts: int, share: ExpertShare) -> slice:
-    """The experts of ``share`` among ``n_experts`` (which must split evenly)."""
+def _require_split(n_experts: int, share: ExpertShare) -> None:
+    # local_slice would keep a bank whole where the experts do not divide
     if n_experts % share.ranks:
         raise ValueError(f"{n_experts} experts do not split over {share.ranks} ranks")
-    n = n_experts // share.ranks
-    return slice(share.rank * n, (share.rank + 1) * n)
 
 
 def params_from_numpy(
@@ -73,7 +73,8 @@ def params_from_numpy(
             return {str(k): carry(v, str(k)) for k, v in node.items()}
         arr = np.asarray(node)
         if share is not None and name in _BANKS and arr.ndim == 4:
-            arr = arr[:, expert_slice(arr.shape[1], share)]
+            _require_split(arr.shape[1], share)
+            arr = local_slice(arr, BANK_SPEC, *share.layout())
         floating = arr.dtype.kind == "f" or arr.dtype.name == "bfloat16"
         return tensor_from_numpy(arr, device, dtype if floating else None)
 
@@ -88,14 +89,16 @@ def artifacts_from_numpy(
     expert bank's artifact (a 4-D ``w_codes``, every array field led by its
     (L, E) axes) keeps the share's experts, its per-layer tuples of
     per-expert reports likewise."""
-    arrays = {f: arrays.get(f) for f in ARTIFACT_ARRAY_FIELDS}
+    arrays = {f: np.asarray(arrays[f]) for f in ARTIFACT_ARRAY_FIELDS if arrays.get(f) is not None}
     aux = {}
-    if share is not None and np.ndim(arrays["w_codes"]) == 4:
-        sl = expert_slice(np.shape(arrays["w_codes"])[1], share)
-        arrays = {f: (np.asarray(a)[:, sl] if a is not None else None) for f, a in arrays.items()}
+    if share is not None and arrays["w_codes"].ndim == 4:
+        n_experts = arrays["w_codes"].shape[1]
+        _require_split(n_experts, share)
+        arrays = local_fields(arrays, BANK_SPEC, *share.layout())
+        n = n_experts // share.ranks
         aux = {
-            k: tuple(per_layer[sl] for per_layer in getattr(template, k))
+            k: tuple(per_layer[share.rank * n:(share.rank + 1) * n] for per_layer in getattr(template, k))
             for k in ("report", "repair") if getattr(template, k) is not None
         }
-    fields = {f: (tensor_from_numpy(a, device) if a is not None else None) for f, a in arrays.items()}
+    fields = {f: (tensor_from_numpy(arrays[f], device) if f in arrays else None) for f in ARTIFACT_ARRAY_FIELDS}
     return dataclasses.replace(template, **fields, **aux)

@@ -1,6 +1,5 @@
 """Program-once crossbar compilation: frozen programmed-weight artifacts
-(counterpart of ``repro.device.programmed``; sharding is not part of this
-slice).
+(counterpart of ``repro.device.programmed``).
 
 * ``program_layer(w, spec, device_cfg, adc_cfg) -> ProgrammedLinear`` — the
   programming-time entry point: quantized cell codes, device-perturbed
@@ -13,6 +12,10 @@ slice).
   An artifact compiled under a ``core.planner.LayerPlan`` whose datapath is
   Karatsuba or Strassen serves through ``core.karatsuba`` /
   ``core.strassen`` instead of a kernel (``PLANNED_CALLS`` counts them).
+* ``artifact_shard_specs`` / ``dividing_pspec`` / ``shard_artifacts`` /
+  ``local_artifact`` — sharding: a placed chip is the global artifacts with
+  a per-artifact ``sharding`` record (what the store writes), and a rank's
+  slice is ``local_artifact``'s (repair tables re-indexed to local columns).
 * ``program_model(params, ...) -> ProgrammedModel`` — walk a nested dict of
   parameters and compile every projection.  Artifacts are keyed by the joined
   parameter path ("stage0/b0/mixer/wq"); ``models.layers.crossbar_linear``
@@ -33,9 +36,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.adc import ADCConfig, SAFE_ADAPTIVE
@@ -99,6 +104,9 @@ class ProgrammedLinear:
     datapath picks the route), ``report`` (a ``program.ProgramReport``) and
     ``repair`` (a ``repair.RepairReport``), per-slab tuples on a stacked
     artifact.  ``age`` / ``at_time`` give the drift-evolved chip.
+    ``sharding`` is the placement record of a deployed chip (``{field:
+    spec}`` for every field that is not replicated, from
+    ``shard_artifacts`` or a store); it is not part of chip equality.
     """
 
     w_codes: torch.Tensor
@@ -117,6 +125,7 @@ class ProgrammedLinear:
     device: Optional[dm.DeviceConfig] = None
     t_service_s: float = 0.0
     plan: Optional[LayerPlan] = None
+    sharding: Optional[Dict[str, Tuple[Any, ...]]] = dataclasses.field(default=None, compare=False)
 
     @property
     def noisy(self) -> bool:
@@ -409,6 +418,209 @@ def programmed_linear(
     y = programmed_matmul(xs, art)
     cs = art.w_colsum if colsum is None else colsum
     return y + shift.to(torch.float32) * cs
+
+
+# ---------------------------------------------------------------------------
+# Sharding: placement records and rank-local slices
+# ---------------------------------------------------------------------------
+#
+# A spec is a tuple of entries (None, an axis name or a tuple of names), one
+# a dim, shorter than the array meaning replicated trailing dims.  Axis
+# semantics per artifact field (w_codes is the weight, (…stack, K, N)):
+#   * stacking axes (L layers / E experts) — slice every leaf; each (K, N)
+#     slab stays intact, so expert-parallel serving is bit-identical;
+#   * N (output columns) — column-separable: cells, colsums and gather
+#     tables slice cleanly (``local_artifact`` re-indexes repair tables to
+#     local column coordinates);
+#   * K (contraction rows) — rank-local *rows of the global chip*: servable
+#     as partial sums, but ``w_colsum`` is a full-K reduction and cannot be
+#     sliced — the caller supplies local column sums
+#     (``programmed_linear(colsum=...)``).
+
+
+def _pspec_entries(wspec, ndim: int) -> Tuple[Any, ...]:
+    """Normalize a spec (possibly shorter than ndim) to ``ndim`` entries."""
+    entries = tuple(wspec) if wspec is not None else ()
+    if len(entries) > ndim:
+        raise ValueError(f"spec {wspec} longer than weight rank {ndim}")
+    return entries + (None,) * (ndim - len(entries))
+
+
+def _field_specs(fields, ndim: int, wspec) -> Dict[str, Tuple[Any, ...]]:
+    entries = _pspec_entries(wspec, ndim)
+    stack, kspec, nspec = entries[:-2], entries[-2], entries[-1]
+    specs = {
+        "w_codes": (*stack, kspec, nspec),
+        "g_eff": (*stack, None, kspec, nspec),  # the bit-plane axis stays whole
+        # no K axis: under K-sharding it stays the *global* correction term
+        "w_colsum": (*stack, nspec),
+        "w_scale": (*stack,),
+        "x_scale": (*stack,),
+        # the spare block is a per-group column budget, not output columns
+        "g_spare": (*stack, None, kspec, None),
+        # (S, R, N) routing tables: slice / row-group axes are physical
+        "out_gather": (*stack, None, None, nspec),
+        "comp_scale": (*stack, nspec),
+    }
+    return {f: specs[f] for f in ARTIFACT_ARRAY_FIELDS if f in fields}
+
+
+def artifact_shard_specs(art: ProgrammedLinear, wspec) -> Dict[str, Tuple[Any, ...]]:
+    """{array field: spec} matching the shadowed weight's spec ``wspec``
+    ((…stack, K, N) axes): stacking axes map one-to-one, ``g_eff`` /
+    ``g_spare`` keep their bit-plane axis replicated, column-shaped leaves
+    follow N."""
+    fields = [f for f in ARTIFACT_ARRAY_FIELDS if getattr(art, f) is not None]
+    return _field_specs(fields, art.w_codes.ndim, wspec)
+
+
+def _axes_size(entry, axis_sizes) -> int:
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(int(axis_sizes[a]) for a in axes)
+
+
+def dividing_pspec(spec, shape, axis_sizes) -> Tuple[Any, ...]:
+    """Degrade non-dividing spec entries to replicated: an entry is kept
+    only if every named axis is in ``axis_sizes`` (a mesh's ``shape``) and
+    their total size divides the dim.  Placement (``shard_artifacts``), the
+    store's restore and ``local_artifact`` all go through this one rule."""
+    fixed = []
+    for dim, ax in zip(shape, _pspec_entries(spec, len(shape))):
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        if ax is None or any(a not in axis_sizes for a in axes):
+            fixed.append(None)
+        else:
+            fixed.append(ax if dim % _axes_size(ax, axis_sizes) == 0 else None)
+    return tuple(fixed)
+
+
+def artifact_arrays(art: ProgrammedLinear) -> Dict[str, torch.Tensor]:
+    """{field: array} for every non-None array leaf."""
+    return {f: getattr(art, f) for f in ARTIFACT_ARRAY_FIELDS if getattr(art, f) is not None}
+
+
+def with_arrays(template: ProgrammedLinear, arrays: Dict[str, torch.Tensor]) -> ProgrammedLinear:
+    """Rebuild an artifact from (rank-local) arrays and a template's static
+    data; fields absent from ``arrays`` become None.  Reports and the
+    placement record describe the *global* chip and are dropped."""
+    missing = {f: None for f in ARTIFACT_ARRAY_FIELDS if f not in arrays}
+    return dataclasses.replace(template, report=None, repair=None, sharding=None, **arrays, **missing)
+
+
+def shard_artifacts(prog: "ProgrammedModel", mesh, specs: Dict[str, Any]) -> "ProgrammedModel":
+    """Record where a deployment on ``mesh`` places every artifact: ``specs``
+    maps canonical names to the shadowed weight's spec (names it lacks stay
+    replicated); each field's spec is degraded per entry by
+    ``dividing_pspec`` against ``mesh.shape``.  Returns a new
+    ProgrammedModel of the same global arrays, each artifact carrying its
+    ``sharding`` record (None where every field is replicated)."""
+
+    def place(name: str, art: ProgrammedLinear) -> ProgrammedLinear:
+        wspec = specs.get(name)
+        if wspec is None:
+            return art
+        record = {}
+        for f, spec in artifact_shard_specs(art, wspec).items():
+            fixed = dividing_pspec(spec, getattr(art, f).shape, mesh.shape)
+            if any(e is not None for e in fixed):
+                record[f] = fixed
+        return dataclasses.replace(art, sharding=record or None)
+
+    def remap(tree, path):
+        if isinstance(tree, ProgrammedLinear):
+            return place("/".join(path), tree)
+        if isinstance(tree, dict):
+            return {k: remap(v, path + (str(k),)) for k, v in tree.items()}
+        return tree
+
+    return ProgrammedModel(remap(prog.artifacts, ()))
+
+
+def _block(entry, dim: int, axis_sizes, coords) -> slice:
+    """This rank's block of one dim under a (dividing) spec entry: the axes
+    of a tuple entry linearised row-major, like the mesh's rank order."""
+    if entry is None:
+        return slice(None)
+    idx = 0
+    for a in entry if isinstance(entry, tuple) else (entry,):
+        idx = idx * int(axis_sizes[a]) + int(coords[a])
+    step = dim // _axes_size(entry, axis_sizes)
+    return slice(idx * step, (idx + 1) * step)
+
+
+def local_slice(a, spec, axis_sizes, coords):
+    """This rank's block of array ``a`` (a tensor or a numpy array, a view
+    where it can be) under ``spec``; non-dividing entries keep the dim."""
+    fixed = dividing_pspec(spec, tuple(a.shape), axis_sizes)
+    return a[tuple(_block(e, d, axis_sizes, coords) for e, d in zip(fixed, a.shape))]
+
+
+def _reindex_repair(gather: np.ndarray, spare: np.ndarray, n_cols: int, n_loc: int):
+    """Re-index a rank's column slice of the routing tables (stack + (S, R,
+    n_loc), global coordinates) to local columns, and compact its spare
+    block (stack + (S, K, B)) to the spares those columns use, one local
+    numbering shared by every table of a chip (a spare is one physical
+    column of every array of its group)."""
+    lead = gather.shape[:-3]
+    gather = gather.reshape((-1,) + gather.shape[-3:]).copy()
+    spare2 = spare.reshape((-1,) + spare.shape[-3:])
+    new_spares = []
+    for i in range(gather.shape[0]):
+        flat = gather[i].reshape(-1, gather.shape[-1])
+        used: list = []
+        for u in range(flat.shape[0]):
+            for j in range(n_loc):
+                g = int(flat[u, j])
+                if g < n_cols:
+                    # repair only ever redirects a column to a spare, so a
+                    # data column's global value is its own position: j
+                    flat[u, j] = j
+                else:
+                    b = g - n_cols
+                    if b not in used:
+                        used.append(b)
+                    flat[u, j] = n_loc + used.index(b)
+        new_spares.append(spare2[i][..., used] if used else spare2[i][..., :0])
+    width = max((s.shape[-1] for s in new_spares), default=0)
+    padded = [np.pad(s, [(0, 0)] * (s.ndim - 1) + [(0, width - s.shape[-1])]) for s in new_spares]
+    spare_out = np.stack(padded).reshape(lead + padded[0].shape) if lead else padded[0]
+    return gather.reshape(lead + gather.shape[-3:]), spare_out
+
+
+def local_fields(arrays: Dict[str, Any], wspec, axis_sizes, coords) -> Dict[str, Any]:
+    """One rank's slice of an artifact's ``{field: array}`` (tensors or
+    numpy arrays, e.g. the members of a store's ``.npz``) under the weight
+    spec ``wspec``; where N is sharded and the chip carries repair tables,
+    ``out_gather`` is re-indexed to local columns and ``g_spare`` compacted
+    (``_reindex_repair``)."""
+    w_shape = tuple(arrays["w_codes"].shape)
+    specs = _field_specs(tuple(arrays), len(w_shape), wspec)
+    out = {f: local_slice(a, specs[f], axis_sizes, coords) for f, a in arrays.items()}
+    nspec = dividing_pspec(wspec, w_shape, axis_sizes)[-1]
+    if nspec is not None and "out_gather" in out:
+        def host(a):
+            return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+        gather, spare = _reindex_repair(
+            host(out["out_gather"]), host(out["g_spare"]), w_shape[-1], w_shape[-1] // _axes_size(nspec, axis_sizes)
+        )
+        for f, new in (("out_gather", gather), ("g_spare", spare)):
+            out[f] = torch.from_numpy(new).to(out[f].device) if isinstance(out[f], torch.Tensor) else new
+    return out
+
+
+def local_artifact(
+    art: ProgrammedLinear, wspec, axis_sizes: Dict[str, int], coords: Dict[str, int]
+) -> ProgrammedLinear:
+    """One rank's slice of an artifact: ``axis_sizes`` gives the mesh extent
+    of every named axis in ``wspec``, ``coords`` the rank's coordinate on
+    each.  Every array leaf is sliced along the weight's sharded axes (a
+    contiguous copy on the artifact's device); repair tables are re-indexed
+    to local columns (``local_fields``).  Serving never reads the repair
+    tables (``g_eff`` holds the repaired layout); they are the rank's
+    hardware record."""
+    arrays = local_fields(artifact_arrays(art), wspec, axis_sizes, coords)
+    return with_arrays(art, {f: a.contiguous() for f, a in arrays.items()})
 
 
 # ---------------------------------------------------------------------------

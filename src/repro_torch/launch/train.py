@@ -43,7 +43,8 @@ def main(argv=None) -> None:
     if args.model_parallel > 1:
         ap.error(
             "--model-parallel > 1: sharded training is not ported yet "
-            "(ROADMAP Queue 1, item 1: sharding); this launcher trains on one device"
+            "(ROADMAP Queue 1: training over a mesh; the port's sharding serves MoE ranks only); "
+            "this launcher trains on one device"
         )
 
     cfg = get_config(args.arch)

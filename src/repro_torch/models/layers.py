@@ -1,6 +1,14 @@
-"""Core layers: norms, MLP, RoPE, embedding, LM head and the crossbar linear
-(counterpart of ``repro.models.layers``; the mesh / sharding helpers are not
-ported).  Plain functions on tensors; params are nested dicts of tensors.
+"""Core layers: the mesh context and logical axis rules, norms, MLP, RoPE,
+embedding, LM head and the crossbar linear (counterpart of
+``repro.models.layers``).  Plain functions on tensors; params are nested
+dicts of tensors.
+
+Logical axes map to mesh axes through ``LOGICAL_RULES`` and a config's
+``layout_overrides``; the active mesh (a ``launch.mesh.Mesh``: anything with
+``axis_names`` and a ``shape`` mapping) is held in a context (``use_mesh``).
+A spec is a tuple of entries, each None, an axis name or a tuple of names
+(the reference's ``PartitionSpec``).  The reference's ``shard`` constraints
+have no counterpart: a rank process holds its slices explicitly.
 """
 from __future__ import annotations
 
@@ -15,6 +23,124 @@ import torch.nn.functional as F
 
 from repro_torch.device import programmed as prog
 from repro_torch.kernels import ops as kops
+
+# ---------------------------------------------------------------------------
+# Mesh context + logical axis rules
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+LOGICAL_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "experts": "model",
+    "d_inner": "model",
+    "seq_shard": ("pod", "data"),  # long-context cache sequence sharding
+    "act_seq": "model",  # sequence-parallel residual stream between blocks
+    # expert-TP decode layout (weights-stationary serving; see moe.py):
+    "moe_dm": None,  # wi contraction dim; "model" under expert_tp
+    "moe_ff": None,  # wo contraction dim; "model" under expert_tp
+}
+
+
+def current_mesh():
+    return getattr(_CTX, "mesh", None)
+
+
+def current_overrides() -> Dict[str, Any]:
+    return getattr(_CTX, "overrides", {})
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, overrides: Optional[Dict[str, Any]] = None):
+    """Install the active mesh and optional per-config logical-rule
+    overrides (``layout_overrides``) for the dynamic scope."""
+    prev = getattr(_CTX, "mesh", None)
+    prev_ov = getattr(_CTX, "overrides", {})
+    _CTX.mesh = mesh
+    _CTX.overrides = dict(overrides or {})
+    try:
+        yield
+    finally:
+        _CTX.mesh = prev
+        _CTX.overrides = prev_ov
+
+
+def layout_overrides(cfg) -> Dict[str, Any]:
+    """Per-config logical-rule overrides (``ModelConfig.layout``): ``pure_dp``
+    treats the model axis as more data parallelism; ``ep_only`` shards only
+    the expert banks (everything else replicated, so a programmed chip
+    serves bit-identically to one device); ``expert_tp`` is weights-
+    stationary MoE serving, experts over "data" and the expert FFN's
+    contraction dims over "model"."""
+    if getattr(cfg, "layout", "") == "pure_dp":
+        return {
+            "batch": ("pod", "data", "model"),
+            "seq_shard": ("pod", "data", "model"),
+            "vocab": None,
+            "heads": None,
+            "kv_heads": None,
+            "mlp": None,
+            "d_inner": None,
+            "experts": None,
+            "act_seq": None,
+        }
+    if getattr(cfg, "layout", "") == "ep_only":
+        return {
+            "batch": None,
+            "seq_shard": None,
+            "vocab": None,
+            "heads": None,
+            "kv_heads": None,
+            "mlp": None,
+            "d_inner": None,
+            "act_seq": None,
+        }
+    if getattr(cfg, "layout", "") == "expert_tp":
+        return {"experts": "data", "moe_dm": "model", "moe_ff": "model"}
+    return {}
+
+
+def _resolve_axis(logical: Optional[str], mesh):
+    if logical is None:
+        return None
+    ov = current_overrides()
+    rule = ov[logical] if logical in ov else LOGICAL_RULES.get(logical)
+    if rule is None:
+        return None
+    if isinstance(rule, tuple):
+        present = tuple(a for a in rule if a in mesh.axis_names)
+        return present if present else None
+    return rule if rule in mesh.axis_names else None
+
+
+def pspec(axes, mesh=None) -> Tuple[Any, ...]:
+    """The spec of a leaf with logical ``axes`` on ``mesh`` (default: the
+    active one; no mesh: the empty spec, replicated)."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return ()
+    return tuple(_resolve_axis(a, mesh) for a in axes)
+
+
+def dividing_entry(dim: int, ax, mesh):
+    """Largest usable sharding for one dim: the full entry when it divides,
+    else the longest *prefix* of a tuple entry that divides (e.g. batch 32
+    on ("pod","data","model") -> ("pod","data")), else None."""
+    if ax is None:
+        return None
+    axes = ax if isinstance(ax, tuple) else (ax,)
+    for end in range(len(axes), 0, -1):
+        size = 1
+        for a in axes[:end]:
+            size *= int(mesh.shape[a])
+        if size > 1 and dim % size == 0:
+            prefix = axes[:end]
+            return prefix if isinstance(ax, tuple) else prefix[0]
+    return None
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -152,6 +278,23 @@ def reset_crossbar_misses() -> None:
 def restore_crossbar_misses(counts: Dict[str, int]) -> None:
     """Overwrite the miss record with a ``crossbar_miss_counts`` snapshot."""
     _MISSES.counts = dict(counts)
+
+
+def note_crossbar_gap(name: str) -> None:
+    """Record that a weight-bearing computation stayed digital under an
+    active ProgrammedModel (a rank body found no artifact for ``name``): a
+    miss like any other, raised under strict mode.  No-op without a
+    ProgrammedModel (digital and per-call runs are not gaps)."""
+    if not _CROSSBAR.enabled or _CROSSBAR.programmed is None:
+        return
+    key = prog.scoped_name(name)
+    _record_crossbar_miss(key)
+    if _CROSSBAR.strict:
+        raise LookupError(
+            f"crossbar coverage gap: {key!r} runs digitally inside a rank body — no "
+            "programmed artifact is bound for it (a partially programmed model or a "
+            "stale store)"
+        )
 
 
 def current_crossbar() -> CrossbarMode:

@@ -1,6 +1,5 @@
-"""Mixture-of-Experts FFN on one device (counterpart of the single-device
-path of ``repro.models.moe``: its ``mesh is None`` branch, and one rank of
-its expert-parallel body without the collectives).
+"""Mixture-of-Experts FFN (counterpart of ``repro.models.moe``): on one
+device, and over the ranks of a mesh through the reference's three bodies.
 
 Routing is the reference's: the router is a crossbar projection like any
 other, a softmax over all experts, the top ``k`` (ties to the lower expert
@@ -27,6 +26,29 @@ experts' slots and returns its partial sum, as the reference's EP body
 (``repro/models/moe.py`` ``moe_ffn``, the shard_map branch) does before its
 ``psum`` over ranks; the other ranks' experts and the ``psum`` are not part
 of the share.  The default share (one rank) is the single-device path.
+
+Over a mesh (``layers.use_mesh``; one process per rank, ``launch.mesh``)
+``moe_ffn`` selects the reference's body as its ``moe_ffn`` does:
+
+* ``_moe_expert_tp`` (``layout="expert_tp"``): experts over "data", the
+  expert FFN's contraction dims over "model"; each rank holds rows of the
+  global chip and serves partial sums (``programmed_linear(colsum=)``) that
+  ``psum`` / ``psum_scatter`` add up, and the routed rows cross "data" by
+  all-to-all;
+* ``_moe_alltoall`` (``moe_dispatch="alltoall"``, S splitting over
+  "model"): tokens sequence-sharded, routed copies exchanged by all-to-all;
+* the expert-parallel body (``_moe_ep``): every rank routes its tokens,
+  computes its experts' slots, and the partial outputs are ``psum``-ed.
+
+Each rank quantizes its own input shard, as the reference's ranks do (the
+dynamic ``x_scale`` is per rank), so the all-to-all and expert-TP results
+are the reference's mesh results, not its one-device ones.  A body's
+output is sharded as its ``out_specs`` say; ``moe_ffn`` gathers it, so every
+rank returns the whole ``(B, S, D)``.  The shared expert runs whole on every
+rank.  The params are the rank's slices (``rank_params``: the banks and the
+router by ``param_specs``); the bound artifacts must be the rank's slices
+too (``checkpoint.restore_programmed(mesh=)``, or ``device.programmed.
+local_artifact`` of a whole chip): a rank never holds the whole chip.
 """
 from __future__ import annotations
 
@@ -39,8 +61,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import programmed as prog
 from repro_torch.device.programmed import bind_artifacts
-from repro_torch.models.layers import _resolve_crossbar_artifact, crossbar_linear, current_crossbar
+from repro_torch.models.layers import (
+    _resolve_axis,
+    _resolve_crossbar_artifact,
+    crossbar_linear,
+    current_crossbar,
+    current_mesh,
+    layout_overrides,
+    note_crossbar_gap,
+    pspec,
+    use_mesh,
+)
+
+# An (L, E, K, N) expert bank under expert parallelism: the experts over the
+# "model" axis (an ExpertShare is rank ``rank`` of ``ranks`` on it).
+BANK_SPEC = (None, "model", None, None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +103,11 @@ class ExpertShare:
     def first_expert(self, cfg: ModelConfig) -> int:
         """Global id of the share's first expert (the EP body's ``lo``)."""
         return self.rank * self.local_experts(cfg)
+
+    def layout(self) -> Tuple[Dict[str, int], Dict[str, int]]:
+        """(axis sizes, coordinates) of the share on the "model" axis, for
+        ``device.programmed.local_slice`` under ``BANK_SPEC``."""
+        return {"model": self.ranks}, {"model": self.rank}
 
 
 SINGLE_DEVICE = ExpertShare()
@@ -287,25 +329,284 @@ def _dispatch_compute(
     return combine(contrib.to(xf.dtype), token_slots)
 
 
-def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, share: Optional[ExpertShare] = None) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D): the routed experts of ``share`` (default:
-    the ambient ``current_expert_share()``) plus the shared expert.  The
-    banks must hold the share's experts."""
-    share = current_expert_share() if share is None else share
+# ---------------------------------------------------------------------------
+# Rank slices
+# ---------------------------------------------------------------------------
+
+# The reference's logical axes of the routed leaves (its ``init_moe``),
+# without the stacking axis.  The shared expert runs whole on every rank.
+_LOGICAL_AXES = {
+    "router": ("moe_dm", None),
+    "wi": ("experts", "moe_dm", None),
+    "wg": ("experts", "moe_dm", None),
+    "wo": ("experts", "moe_ff", "embed"),
+}
+
+
+def _ffn_specs(ffn: Dict[str, torch.Tensor], mesh) -> Dict[str, Tuple]:
+    """{leaf: spec} of one FFN's routed leaves under the active overrides,
+    ``None`` entries for the leading stacking axes."""
+    return {
+        k: (None,) * (ffn[k].ndim - len(ax)) + pspec(ax, mesh)
+        for k, ax in _LOGICAL_AXES.items() if k in ffn
+    }
+
+
+def param_specs(params, cfg: ModelConfig, mesh) -> Dict[str, Tuple]:
+    """{joined path: spec} of every MoE FFN's router and banks in a params
+    tree (an FFN is a dict holding a ``router``) under ``cfg``'s layout on
+    ``mesh``: the specs the rank slices and the chip's placement follow."""
+    out = {}
+
+    def visit(node, path):
+        if not isinstance(node, dict):
+            return
+        if "router" in node:
+            out.update({"/".join(path + (k,)): v for k, v in _ffn_specs(node, mesh).items()})
+            return
+        for k, v in node.items():
+            visit(v, path + (str(k),))
+
+    with use_mesh(mesh, layout_overrides(cfg)):
+        visit(params, ())
+    return out
+
+
+def rank_params(params, cfg: ModelConfig, mesh):
+    """This rank's copy of a params tree: every MoE FFN's router and banks
+    sliced by ``param_specs`` (contiguous copies), every other leaf as
+    given.  The counterpart of what ``shard_map``'s ``in_specs`` hand the
+    reference's bodies."""
+    specs = param_specs(params, cfg, mesh)
+
+    def carry(node, path):
+        if isinstance(node, dict):
+            return {k: carry(v, path + (str(k),)) for k, v in node.items()}
+        spec = specs.get("/".join(path))
+        if spec is None:
+            return node
+        return prog.local_slice(node, spec, mesh.shape, mesh.coords).contiguous()
+
+    return carry(params, ())
+
+
+def _artifact_shard_inputs(params) -> Dict[str, prog.ProgrammedLinear]:
+    """This rank's artifacts for the body's projections (the router and the
+    banks of ``params``, this rank's slices): a name resolves only to an
+    artifact of the local weight's shape, a rank slice.  Names that do
+    not resolve are absent; the body notes the gap (a miss, an error under
+    strict mode).  (The reference stages the arrays for ``shard_map`` and
+    rebinds them inside its body, ``_rebind_rank_artifacts``; a rank
+    process holds its slices, so the body binds them under the same
+    names.)"""
+    out = {}
+    for name in ("router", "wi", "wg", "wo"):
+        w = params.get(name)
+        if w is None:
+            continue
+        art = _resolve_crossbar_artifact(name, w.shape)[1]
+        if art is not None:
+            out[name] = art
+    return out
+
+
+def _body(cfg: ModelConfig, mesh, S: int, D: int) -> str:
+    """Which of the reference's bodies serves ``cfg`` on ``mesh``:
+    "expert_tp", "alltoall", "ep", or "single" (no expert parallelism: every
+    rank computes the whole layer).  The expert-TP layout on a mesh it
+    cannot split is refused, as its rank slices would not serve any other
+    body."""
+    E = cfg.moe_experts
+    model_size = int(mesh.shape.get("model", 1))
+    if _resolve_axis("experts", mesh) is None and cfg.layout != "expert_tp":
+        model_size = 1  # layout override: no EP
+    if cfg.layout == "expert_tp" and mesh.size > 1:
+        if not (
+            "data" in mesh.axis_names and model_size > 1 and E % int(mesh.shape["data"]) == 0
+            and D % model_size == 0 and cfg.moe_d_ff % model_size == 0
+        ):
+            raise ValueError(f"{cfg.name}: the expert_tp layout does not split on a mesh of {mesh.shape}")
+        return "expert_tp"
+    if cfg.moe_dispatch == "alltoall" and model_size > 1 and E % model_size == 0 and S % model_size == 0:
+        return "alltoall"
+    if model_size == 1 or E % model_size != 0:
+        return "single"
+    return "ep"
+
+
+def _batch_split(x: torch.Tensor, mesh):
+    """(batch axes, this rank's batch block of x or x whole): the bodies'
+    ``x_spec`` puts the batch over ("pod", "data") where it divides."""
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    dp = mesh.axis_size(batch_axes) if batch_axes else 1
+    if dp == 1 or x.shape[0] % dp:
+        return (), x
+    n = x.shape[0] // dp
+    i = mesh.axis_index(batch_axes)
+    return batch_axes, x[i * n:(i + 1) * n]
+
+
+def _block_of(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+    n = x.shape[dim] // mesh.axis_size(axis)
+    return x.narrow(dim, mesh.axis_index(axis) * n, n).contiguous()
+
+
+def _require_local_banks(params, cfg: ModelConfig, n_experts: int, body: str) -> None:
+    if params["wi"].shape[0] != n_experts:
+        raise ValueError(
+            f"{cfg.name}: the {body} body takes this rank's slices ({n_experts} experts), the banks "
+            f"hold {params['wi'].shape[0]}: pass rank_params(params, cfg, mesh)"
+        )
+
+
+def _moe_ep(params, x: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """Expert parallelism with replicated tokens (the reference's shard_map
+    branch of ``moe_ffn``): every rank routes its tokens over all experts,
+    computes its own experts' slots, and the partial outputs are ``psum``-ed
+    over "model"."""
     B, S, D = x.shape
     k = cfg.moe_top_k
-    n_local = share.local_experts(cfg)
-    if params["wi"].shape[0] != n_local:
-        raise ValueError(
-            f"{cfg.name}: the expert banks hold {params['wi'].shape[0]} experts, the share "
-            f"{share} {n_local}: run the params under the ExpertShare they were made for"
-        )
-    idx, gates, _ = _route(x, params["router"], cfg)
-    y = _dispatch_compute(
-        x.reshape(-1, D), idx.reshape(-1, k), gates.reshape(-1, k),
-        params["wi"], params.get("wg"), params["wo"],
-        share.first_expert(cfg), _capacity(B * S, cfg, n_local), cfg.mlp_kind,
-    ).reshape(B, S, D)
+    n_model = int(mesh.shape["model"])
+    E_loc = cfg.moe_experts // n_model
+    _require_local_banks(params, cfg, E_loc, "ep")
+    batch_axes, xl = _batch_split(x, mesh)
+    cap = _capacity(xl.shape[0] * S, cfg, E_loc)
+    local = _artifact_shard_inputs(params)
+    with bind_artifacts(local):
+        idx, gates, _ = _route(xl, params["router"], cfg)
+        y = _dispatch_compute(
+            xl.reshape(-1, D), idx.reshape(-1, k), gates.reshape(-1, k),
+            params["wi"], params.get("wg"), params["wo"],
+            mesh.coords["model"] * E_loc, cap, cfg.mlp_kind,
+        ).reshape(xl.shape)
+    y = mesh.psum(y, "model")
+    return mesh.all_gather(y, batch_axes, 0) if batch_axes else y
+
+
+def _moe_alltoall(params, x: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """GShard-style EP: tokens sequence-sharded over "model"; the dispatch
+    all-to-all moves only the routed rows (E * cap of them a rank), the
+    combine all-to-all brings the expert outputs back."""
+    B, S, D = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    n_ranks = int(mesh.shape["model"])
+    E_loc = E // n_ranks
+    _require_local_banks(params, cfg, E_loc, "alltoall")
+    batch_axes, xb = _batch_split(x, mesh)
+    xl = _block_of(xb, 1, mesh, "model")
+    Bl, Sl, _ = xl.shape
+    cap = _capacity(Bl * Sl, cfg, E_loc)
+    local = _artifact_shard_inputs(params)
+    xf = xl.reshape(-1, D)
+    with bind_artifacts(local):
+        idx, gates, _ = _route(xl, params["router"], cfg)
+        tok_slot, gate_slot, token_slots = slot_tables(idx.reshape(-1, k), gates.reshape(-1, k), E, cap)
+        buf = mesh.all_to_all(xf[tok_slot], "model")  # this rank's experts' rows, from every source
+        h = buf.reshape(n_ranks, E_loc, cap, D).transpose(0, 1).reshape(E_loc, n_ranks * cap, D)
+        out = _expert_ffn(h, params["wi"], params.get("wg"), params["wo"], cfg.mlp_kind)
+    out = out.reshape(E_loc, n_ranks, cap, D).transpose(0, 1).reshape(n_ranks * E_loc * cap, D)
+    out = mesh.all_to_all(out, "model")
+    contrib = out * gate_slot[:, None].to(out.dtype)
+    y = combine(contrib.to(xf.dtype), token_slots).reshape(Bl, Sl, D)
+    y = mesh.all_gather(y, "model", 1)
+    return mesh.all_gather(y, batch_axes, 0) if batch_axes else y
+
+
+def _moe_expert_tp(params, x: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """Weights-stationary EP (``layout="expert_tp"``): experts over "data",
+    the expert FFN's contraction dims over "model".  No weight moves; the
+    routed rows cross "data" by all-to-all, and the partial sums of each
+    rank's rows of the global chip are added by ``psum`` (router) and
+    ``psum_scatter`` (banks) over "model", the paper's inter-tile digital
+    reduction at cluster scale."""
+    B, S, D = x.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    n_dr, n_mr = int(mesh.shape["data"]), int(mesh.shape["model"])
+    E_dp = E // n_dr
+    _require_local_banks(params, cfg, E_dp, "expert_tp")
+    batch_axes, xb = _batch_split(x, mesh)
+    xl = _block_of(xb, 2, mesh, "model")  # (B_loc, S, D / mr)
+    Bl, Sl, Dl = xl.shape
+    cap = _capacity(Bl * Sl, cfg, E_dp)
+    router = params["router"].to(xl.dtype)
+    local = _artifact_shard_inputs(params)
+    for n in local:
+        # the partial path serves through programmed_linear directly
+        # (crossbar_linear cannot pass the colsum), so record consumption here
+        prog.record_artifact_consumed(prog.scoped_name(n))
+
+    def partial(xe, we, art):
+        # the slice's rows are the rows the global chip programmed; the
+        # offset correction takes the *local* rows' column sums, so the sum
+        # over ranks of shift_r * colsum_r is the whole correction
+        return prog.programmed_linear(xe, art, colsum=torch.sum(we.to(torch.float32), dim=0))
+
+    def bank(h, w_l, name):
+        art = local.get(name)
+        if art is None:
+            note_crossbar_gap(name)
+            return torch.einsum("ecd,edf->ecf", h, w_l)
+        return torch.stack([partial(h[e], w_l[e], art.layer(e)).to(h.dtype) for e in range(h.shape[0])])
+
+    xf = xl.reshape(-1, Dl)
+    if "router" in local:
+        part = partial(xf, router, local["router"])
+    else:
+        note_crossbar_gap("router")
+        part = (xf @ router).to(torch.float32)
+    logits = mesh.psum(part.to(torch.float32), "model")
+    idx, gates, _ = route_from_logits(logits, cfg, xf.dtype)
+    tok_slot, gate_slot, token_slots = slot_tables(idx, gates, E, cap)
+    buf = mesh.all_to_all(xf[tok_slot], "data")
+    h = buf.reshape(n_dr, E_dp, cap, Dl).transpose(0, 1).reshape(E_dp, n_dr * cap, Dl)
+    # contraction over the model-sharded D, then psum-scatter onto the
+    # model-sharded F: weights never move
+    u = mesh.psum_scatter(bank(h, params["wi"], "wi"), "model", 2)
+    g = mesh.psum_scatter(bank(h, params["wg"], "wg"), "model", 2) if params.get("wg") is not None else None
+    out = bank(_act(u, g, cfg.mlp_kind), params["wo"], "wo")  # partial over F -> full D
+    out = mesh.psum_scatter(out, "model", 2)  # (E_dp, slots, D / mr)
+    out = out.reshape(E_dp, n_dr, cap, Dl).transpose(0, 1).reshape(n_dr * E_dp * cap, Dl)
+    out = mesh.all_to_all(out, "data")
+    contrib = out * gate_slot[:, None].to(out.dtype)
+    y = combine(contrib.to(xf.dtype), token_slots).reshape(Bl, Sl, Dl)
+    y = mesh.all_gather(y, "model", 2)
+    return mesh.all_gather(y, batch_axes, 0) if batch_axes else y
+
+
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, share: Optional[ExpertShare] = None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D): the routed experts plus the shared expert.
+
+    Without a mesh: the experts of ``share`` (default: the ambient
+    ``current_expert_share()``), whose banks the params must hold.  Under a
+    mesh (``layers.use_mesh``): the body ``_body`` selects, on this rank's
+    slices (``rank_params``), gathered whole on every rank; a share other
+    than the single device is refused there."""
+    mesh = current_mesh()
+    B, S, D = x.shape
+    k = cfg.moe_top_k
+    share = current_expert_share() if share is None else share
+    body = "single" if mesh is None else _body(cfg, mesh, S, D)
+    if mesh is not None and share != SINGLE_DEVICE:
+        raise ValueError(f"an ExpertShare ({share}) and a mesh do not combine: the mesh's ranks hold the experts")
+    if body == "expert_tp":
+        y = _moe_expert_tp(params, x, cfg, mesh)
+    elif body == "alltoall":
+        y = _moe_alltoall(params, x, cfg, mesh)
+    elif body == "ep":
+        y = _moe_ep(params, x, cfg, mesh)
+    else:
+        n_local = share.local_experts(cfg)
+        if params["wi"].shape[0] != n_local:
+            raise ValueError(
+                f"{cfg.name}: the expert banks hold {params['wi'].shape[0]} experts, the share "
+                f"{share} {n_local}: run the params under the ExpertShare they were made for"
+            )
+        idx, gates, _ = _route(x, params["router"], cfg)
+        y = _dispatch_compute(
+            x.reshape(-1, D), idx.reshape(-1, k), gates.reshape(-1, k),
+            params["wi"], params.get("wg"), params["wo"],
+            share.first_expert(cfg), _capacity(B * S, cfg, n_local), cfg.mlp_kind,
+        ).reshape(B, S, D)
     if cfg.moe_shared_experts:
         u = crossbar_linear(x, params["shared_wi"], name="shared_wi")
         g = crossbar_linear(x, params["shared_wg"], name="shared_wg") if "shared_wg" in params else None
