@@ -127,6 +127,43 @@ Phases (one JSON line each; any failure is an uncaught exception):
                planted faults (zeroed colsums, another rank's banks under
                expert-TP and all-to-all) outside it; spawn / restore /
                forward seconds, peak GB a rank, the collectives' wire bytes
+  serve_deepseek  deepseek-v2-236b served whole at published widths, cut to
+               depth 2 (its dense layer and its first MoE layer), random
+               bf16 weights, an ideal chip, in a process of its own:
+               serve_phase's traffic (6 x 16, max_batch 4, max_seq 256,
+               prompts of at most 32 tokens) through multi-head latent
+               attention and the MoE FFN, 493 K1 launches a forward
+               asserted, the tick and the bucket-32 prefill captured; the
+               store saved, verified, restored and serving the same
+               tokens; layer 0's MLA block on the card against the CPU
+               (float32, crossbar off, <= 1e-5); the logits' rel-L2 to the
+               plain-matmul model < 1; then tick_profile_deepseek (busy time
+               split into K1, the MLA einsums and the rest),
+               graph_vs_eager_deepseek, prefill_vs_eager_deepseek (bucket
+               32).  It saves the chip and the bf16 weights for the ranks
+               and serves and teacher-forces their requests
+  serve_deepseek_ranks  4 gloo rank processes on the card, each a
+               ``ServingEngine(mesh=, restore_artifacts=)`` of its slices of
+               that store and its slices of the memory-mapped weights, on an
+               ``ep_only`` (1, 4) and an ``expert_tp`` (2, 2) mesh: 4
+               requests x 8 tokens (identical on every rank; EP's the one
+               device's where the margins say they must be), teacher-forced
+               logits against one device's (EP on the chip within
+               DEEPSEEK_LOGITS_GATE; EP digitally and expert-TP digitally,
+               uncapped and routed as one device routed, within
+               DEEPSEEK_DIGITAL_GATE; expert-TP's own routing alike to one
+               device's on DEEPSEEK_ROUTED_ALIKE_MIN of the rows;
+               expert-TP on the chip printed), a planted swap of two
+               ranks' bank slices outside the chip gate, 133 / 253 K1
+               launches a forward of the engine's serving run on each rank
+               (the kernels line counts that run; the teacher-forced and
+               planted runs' launches are printed apart), the staged
+               collectives
+  serve_launcher  ``python -m repro_torch.launch.serve --arch
+               deepseek-v2-236b --reduced --crossbar`` as a user runs it:
+               exit 0, its lines parsed
+  Every K1 launch of the deepseek phases is at an (M, K, N) that the
+  kernels phase holds (DEEPSEEK_SHAPES).
   tick_profile_*  three steady decode ticks of each chip under torch.profiler
                (ideal, paper, noisy, planned, xlstm, gemma2, minitron,
                starcoder2, kimi), and 24 ticks of serve_traffic's mix (traffic):
@@ -265,6 +302,8 @@ from repro_torch.kernels.noisy_vmm import noisy_vmm_cuda, noisy_vmm_plain  # noq
 from repro_torch.kernels import slstm_scan as kscan  # noqa: E402
 from repro_torch.kernels.slstm_scan import slstm_scan_cuda, slstm_scan_plain  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_local_mesh, run_ranks  # noqa: E402
+from repro_torch.convert import tensor_to_numpy  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import ExpertShare, expert_share  # noqa: E402
@@ -428,11 +467,66 @@ DEEPSEEK_PLANTS = (
 # expert-TP row slices at 2 data ranks x 8 slots; the router at a decode
 # tick, an all-to-all rank's 8-token block and a prefill, its expert-TP
 # slice at a data rank's 2 tokens; the shared expert (2 x 1536 wide), which
-# every rank runs on every token, at a decode tick and a prefill
+# every rank runs on every token, at a decode tick and a prefill.  Then the
+# rows the whole model adds (serve_deepseek, serve_deepseek_ranks): the
+# expert-TP slices at an uncapped prefill's 2 data ranks x 32 slots and the
+# router slice at a prefill (32) and at the engine's coverage forward (4);
+# MLA's wq (5120 x 128 heads x (128 + 64), also the dense layer's fused wi,
+# 2 x 12288), w_kv_down (kv_lora_rank 512 + rope 64) and wo, and the dense
+# wo, at a decode tick and a bucket-32 prefill; the head at a prefill's last
+# position and a decode tick
 DEEPSEEK_SHAPES = [
     ((5120, 1536), (8, 32)), ((1536, 5120), (8, 32)), ((2560, 1536), (16,)), ((768, 5120), (16,)),
     ((5120, 160), (4, 8, 32)), ((2560, 160), (2,)), ((5120, 3072), (4, 32)), ((3072, 5120), (4, 32)),
+    ((2560, 1536), (64,)), ((768, 5120), (64,)), ((2560, 160), (4, 32)),
+    ((5120, 24576), (4, 32)), ((5120, 576), (4, 32)), ((16384, 5120), (4, 32)), ((12288, 5120), (4, 32)),
+    ((5120, 102400), (1, 4)),
 ]
+# serve_deepseek: deepseek-v2 at published widths cut to its dense first
+# layer and its first MoE layer (a second MoE layer adds a chip of 15.3 GB,
+# as moe_ranks_deepseek holds it on an NVIDIA H100 80GB HBM3 at 700 W, a
+# copy, which 4 rank copies of the rest would not leave room for), random
+# bf16 weights, an ideal chip; serve_phase's traffic at max_seq 256 with
+# prompts of at most 32 tokens (one prefill bucket)
+DEEPSEEK_LAYERS, DEEPSEEK_PROMPT_MAX, DEEPSEEK_SEQ = 2, 32, 256
+# K1 launches a forward: layer 0's 3 MLA projections (wq, w_kv_down, wo) and
+# its dense FFN's 2; layer 1's 3 MLA projections, its router, 160 experts x
+# 3 and the shared expert's 3; the head: 5 + 3 + 484 + 1
+DEEPSEEK_K1_PER_FORWARD = 493
+# a rank's forward: its 40 (EP on 1 x 4) or 80 (expert-TP on 2 x 2) experts
+# x 3 in place of 160 x 3
+DEEPSEEK_RANK_K1 = {"ep": 133, "expert_tp": 253}
+# serve_deepseek_ranks: (name, mesh, layout), in order; the ranks' requests
+# and new tokens a request, also the teacher-forced decode steps
+DEEPSEEK_MESHES = (("ep", (1, 4), "ep_only"), ("expert_tp", (2, 2), "expert_tp"))
+DEEPSEEK_RANK_REQUESTS, DEEPSEEK_RANK_NEW = 4, 8
+# The ranks' teacher-forced logits against one device's, max |d| / max
+# |logit|.  On the chip, EP (PERF.md §6 says how it was reckoned before the
+# first run): the bf16 partial sums of the EP psum (5.9e-3 of the MoE
+# output in moe_ranks_deepseek on an NVIDIA H100 80GB HBM3 at 700 W) pass
+# through the last residual, which the MoE output dominates, and one output
+# code of the head (K = 5120: 2**29 x_scale w_scale, reckoned at ~4 % of the
+# largest logit) flips wherever its input moved; the planted bank swap must
+# read above it.
+DEEPSEEK_LOGITS_GATE = 0.1
+# Digitally, EP and expert-TP routed as one device routed: the bf16 psum
+# alone, with no head code to flip (0.0061 and 0.0076 on an NVIDIA H100
+# 80GB HBM3 at 700 W, 5e-3 predicted from the FFN's reading)
+DEEPSEEK_DIGITAL_GATE = 0.02
+# Expert-TP's own routing, digitally: the share of token rows whose top-k
+# expert set equals one device's, on every rank.  Its router sums two bf16
+# K-partials (the reference's body does too), which reorders near-tied
+# experts (0.958 on an NVIDIA H100 80GB HBM3 at 700 W); a router that drops
+# or doubles a K-half routes most rows apart
+DEEPSEEK_ROUTED_ALIKE_MIN = 0.9
+# the chip's logits against the plain-matmul model's, rel-L2: a check for a
+# broken datapath, as KIMI_REL_L2_MAX
+DEEPSEEK_REL_L2_MAX = 1.0
+# layer 0's MLA block card against CPU, crossbar off, float32 (TF32 off)
+DEEPSEEK_MLA_CPU_GATE = 1e-5
+# tick_profile_deepseek's split of busy time: K1, the MLA einsums (the
+# only float32 GEMMs of a chip's tick: cuBLAS), the rest
+DEEPSEEK_TICK_CLASSES = {"k1": ("fast_kernel",), "mla_einsums": ("gemm", "gemv", "splitK", "dot_kernel")}
 # moe_expert_chips: one full-width MoE FFN of the rank share of EP48 (8
 # experts) on NOISY_DEVICE, one chip identity an expert, at these token
 # counts
@@ -452,8 +546,10 @@ SCAN_EDGES = [
 ]
 SCAN_KERNEL = "slstm_cluster_kernel"  # its name in a profiler trace
 # the spin kernels (torch.cuda._sleep) that open each profiled window to
-# take the profiler's loss of a session's first records (profile_window)
-PROFILE_PROLOGUE, PROLOGUE_SPIN_CYCLES, PROLOGUE_KERNEL = 512, 1000, "spin_kernel"
+# take the profiler's loss of a session's first records (profiler_session)
+PROFILE_PROLOGUE, PROLOGUE_SPIN_CYCLES, PROLOGUE_KERNEL = 4096, 1000, "spin_kernel"
+# profiled windows a tick_profile or train_profile may take before it fails
+PROFILE_RUNS = 3
 # the kernel each launch counter counts, by its name in a profiler trace
 TRACE_NAMES = {
     "fast": "fast_kernel", "planes": "paper_mma_kernel", "noisy": "noisy_mma_kernel", "slstm_scan": SCAN_KERNEL,
@@ -1216,9 +1312,10 @@ def planned_datapaths(dev, quick: bool):
 # serve phases
 # ---------------------------------------------------------------------------
 
-def make_requests(cfg, seed, n=6):
+def make_requests(cfg, seed, n=6, longest=48):
+    """``n`` prompts of 8 to ``longest`` tokens from ``seed``."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, cfg.vocab_size, size=int(rng.integers(8, 49))) for _ in range(n)]
+    return [rng.integers(0, cfg.vocab_size, size=int(rng.integers(8, longest + 1))) for _ in range(n)]
 
 
 class timed_admissions:
@@ -1313,11 +1410,12 @@ def prefill_fields(runner, adm, attention_admissions):
     )
 
 
-def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check, plan=None, share=None):
+def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check, plan=None, share=None, longest=48):
     """``counter``: the launch counter (or, for a planned chip, the
     ``PLANNED_CALLS`` datapath) that must count every projection of every
     forward; every other counter must stay at 0.  ``share``: the
-    ``ExpertShare`` an MoE model's params hold."""
+    ``ExpertShare`` an MoE model's params hold.  ``longest``: the longest
+    prompt of the traffic (``make_requests``)."""
     t0 = time.perf_counter()
     eng = ServingEngine(
         cfg, params, max_batch=4, max_seq=256, crossbar=crossbar, plan=plan, share=share, device=dev,
@@ -1326,7 +1424,7 @@ def serve_phase(phase, cfg, params, crossbar, counter, dev, seed, restore_check,
     program_s = time.perf_counter() - t0
     n_proj = eng.programmed.calls_per_forward
     n_scan = sum(spec.repeats * spec.kinds.count("slstm") for spec in cfg.stages)
-    prompts = make_requests(cfg, seed)
+    prompts = make_requests(cfg, seed, longest=longest)
     reset_crossbar_misses()
     kvmm.reset_counters()  # counts are read for the serving run alone
     kscan.reset_counters()
@@ -1513,15 +1611,18 @@ def kimi_config(layers):
 
 def moe_vmm_calls(cfg, share):
     """VMM launches one forward makes, from the config: 4 attention
-    projections a layer; a dense FFN's fused wi and its wo; an MoE FFN's
-    router, wi / wg / wo of each expert of the share and of the shared
-    expert (a GLU FFN); and the untied head."""
+    projections a layer (q, k, v, o; MLA's 3: wq, w_kv_down, wo, its w_uk /
+    w_uv contractions being digital einsums, as in the reference); a dense
+    FFN's fused wi and its wo; an MoE FFN's router, wi / wg / wo of each
+    expert of the share and of the shared expert (a GLU FFN); and the untied
+    head."""
     ffn = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    attn = 3 if cfg.kv_lora_rank else 4
     n = 0 if cfg.tie_embeddings else 1
     for spec in cfg.stages:
         for moe in spec.moe:
             per_ffn = (1 + ffn * (share.local_experts(cfg) + (1 if cfg.moe_shared_experts else 0))) if moe else 2
-            n += spec.repeats * (4 + per_ffn)
+            n += spec.repeats * (attn + per_ffn)
     return n
 
 
@@ -1856,6 +1957,22 @@ def zeroed_partial_colsums():
         tprog.programmed_linear = real
 
 
+@contextlib.contextmanager
+def k1_shapes(shapes: set):
+    """Record in ``shapes`` the (M, K, N) of every K1 launch in the block."""
+    real = tprog.crossbar_vmm_cuda
+
+    def spy(xq, w_codes, *args, **kwargs):
+        shapes.add((xq.numel() // xq.shape[-1], int(w_codes.shape[-2]), int(w_codes.shape[-1])))
+        return real(xq, w_codes, *args, **kwargs)
+
+    tprog.crossbar_vmm_cuda = spy
+    try:
+        yield shapes
+    finally:
+        tprog.crossbar_vmm_cuda = real
+
+
 def deepseek_layer(params, chip, cfg, mesh, x, fault=None, forced=None):
     """The MoE FFN from ``chip`` (its layer-0 views bound under "moe"; None:
     the crossbar off, the params widened to ``x``'s dtype), under ``mesh``
@@ -1865,7 +1982,7 @@ def deepseek_layer(params, chip, cfg, mesh, x, fault=None, forced=None):
     given: (y, (this rank's router logits, top-k ids, gates), K1 launches,
     the (M, K, N) K1 launched at, device-synchronised seconds)."""
     routes, shapes = [], set()
-    real_route, real_vmm = moe_mod.route_from_logits, tprog.crossbar_vmm_cuda
+    real_route = moe_mod.route_from_logits
 
     def spy(logits, cfg_, dtype):
         out = real_route(logits, cfg_, dtype)
@@ -1875,26 +1992,22 @@ def deepseek_layer(params, chip, cfg, mesh, x, fault=None, forced=None):
                    torch.from_numpy(forced["gates"]).to(out[1].device, dtype).reshape(out[1].shape), out[2])
         return out
 
-    def vmm_spy(xq, w_codes, *args, **kwargs):
-        shapes.add((xq.numel() // xq.shape[-1], int(w_codes.shape[-2]), int(w_codes.shape[-1])))
-        return real_vmm(xq, w_codes, *args, **kwargs)
-
     kvmm.reset_counters()
     reset_crossbar_misses()
     ffn = {k: (v[0] if chip is not None else v[0].to(x.dtype)) for k, v in params["moe"].items()}
     mode = CrossbarMode(enabled=True, programmed=chip, strict=True) if chip is not None else CrossbarMode()
     planted = zeroed_partial_colsums() if fault == "zeroed_colsum" else contextlib.nullcontext()
-    moe_mod.route_from_logits, tprog.crossbar_vmm_cuda = spy, vmm_spy
+    moe_mod.route_from_logits = spy
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        with planted, crossbar_mode(mode), use_mesh(mesh, layout_overrides(cfg) if mesh is not None else None), \
+        with k1_shapes(shapes), planted, crossbar_mode(mode), use_mesh(mesh, layout_overrides(cfg) if mesh is not None else None), \
                 tprog._push_bind_map(chip.stage_layer_maps("moe")[0] if chip is not None else {}), \
                 tprog.name_scope("moe"):
             y = moe_mod.moe_ffn(ffn, x, cfg)
         torch.cuda.synchronize()
     finally:
-        moe_mod.route_from_logits, tprog.crossbar_vmm_cuda = real_route, real_vmm
+        moe_mod.route_from_logits = real_route
     require(crossbar_misses() == (), f"moe_ranks_deepseek: artifact misses {crossbar_misses()}")
     require(len(routes) == 1, f"moe_ranks_deepseek: {len(routes)} routings in one layer")
     return y, routes[0], dict(kvmm.LAUNCHES), sorted(shapes), time.perf_counter() - t0
@@ -2183,32 +2296,643 @@ def moe_ranks_deepseek(dev, seed):
     return launches
 
 
-def tick_profile(phase, eng, prompts, ticks=3):
+def deepseek_serve_config(layout=None, uncapped=False):
+    """deepseek-v2 at published widths cut to ``DEEPSEEK_LAYERS`` layers (its
+    dense first layer, then its first MoE layer), under ``layout`` when
+    given; ``uncapped``: capacity factor E / k, so that no dispatch drops an
+    assignment."""
+    cfg = get_config(DEEPSEEK)
+    dense, moe = cfg.stages
+    cfg = dataclasses.replace(
+        cfg, n_layers=DEEPSEEK_LAYERS, stages=(dense, dataclasses.replace(moe, repeats=DEEPSEEK_LAYERS - dense.repeats)),
+    )
+    if layout is not None:
+        cfg = dataclasses.replace(cfg, layout=layout)
+    if uncapped:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    return cfg
+
+
+def deepseek_rank_traffic(cfg, seed):
+    """The ranks' requests (``DEEPSEEK_RANK_REQUESTS`` prompts of at most
+    ``DEEPSEEK_PROMPT_MAX`` tokens) and the teacher-forced tokens fed after
+    them: (prompts, feed), ``feed[t]`` the tokens of decode step t (step 0
+    re-issues each prompt's last token, as an admission does)."""
+    prompts = make_requests(cfg, seed, n=DEEPSEEK_RANK_REQUESTS, longest=DEEPSEEK_PROMPT_MAX)
+    rng = np.random.default_rng(seed + 1)
+    feed = rng.integers(0, cfg.vocab_size, size=(DEEPSEEK_RANK_NEW, len(prompts)))
+    feed[0] = [p[-1] for p in prompts]
+    return prompts, feed
+
+
+@contextlib.contextmanager
+def recorded_routing(record=None, replay=None, mesh=None):
+    """Within the block, every MoE routing (``moe.route_from_logits``) is
+    appended to ``record`` as host (top-k ids, gates) when given, and, when
+    ``replay`` (such a list from another run, one entry a routing call in
+    order) is given, takes the replayed ids and gates in place of its own
+    (its logits are still computed): a call over fewer rows than the
+    recorded one (an expert-TP rank's batch block) takes this rank's block
+    of the mesh's "data" axis."""
+    real = moe_mod.route_from_logits
+    calls = iter(replay) if replay is not None else None
+
+    def spy(logits, cfg_, dtype):
+        idx, gates, probs = real(logits, cfg_, dtype)
+        if record is not None:
+            record.append((idx.cpu().numpy(), gates.to(torch.float32).cpu().numpy()))
+        if calls is not None:
+            ids, g = next(calls)
+            k = idx.shape[-1]
+            ids, g = ids.reshape(-1, k), g.reshape(-1, k)
+            n = idx.numel() // k
+            if n < ids.shape[0]:
+                lo = mesh.axis_index("data") * n
+                ids, g = ids[lo:lo + n], g[lo:lo + n]
+            idx = torch.from_numpy(np.ascontiguousarray(ids)).to(idx.device).reshape(idx.shape)
+            gates = torch.from_numpy(np.ascontiguousarray(g)).to(gates.device, dtype).reshape(gates.shape)
+        return idx, gates, probs
+
+    moe_mod.route_from_logits = spy
+    try:
+        yield
+    finally:
+        moe_mod.route_from_logits = real
+
+
+def forced_logits(params, cfg, chip, mesh, dev, prompts, feed, record=None, replay=None):
+    """Teacher-forced logits, eager: each prompt prefilled alone (zero-padded
+    to its bucket, on a fresh one-slot cache) and copied into its slot of a
+    pool, then ``len(feed)`` decode steps of the pool fed ``feed``, each
+    slot at its own position; ``chip`` None: the crossbar off; under
+    ``mesh`` when given; the routing recorded or replayed as
+    ``recorded_routing`` says.  Returns (logits (steps, B, V) float32 on the
+    host, K1 launches, forwards)."""
+    mode = CrossbarMode(enabled=True, programmed=chip, strict=True) if chip is not None else CrossbarMode()
+    B, seq = len(prompts), DEEPSEEK_SEQ
+    out = []
+    kvmm.reset_counters()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recorded_routing(record, replay, mesh))
+        stack.enter_context(crossbar_mode(mode))
+        if chip is not None:
+            stack.enter_context(chip.bind())
+        stack.enter_context(use_mesh(mesh, layout_overrides(cfg) if mesh is not None else None))
+        pool = model_lib.init_cache(cfg, B, seq, dtype=torch.float32, device=dev)
+        for slot, p in enumerate(prompts):
+            one = model_lib.init_cache(cfg, 1, seq, dtype=torch.float32, device=dev)
+            tokens = np.zeros((1, DEEPSEEK_PROMPT_MAX), np.int64)
+            tokens[0, : len(p)] = p
+            model_lib.prefill(params, cfg, torch.from_numpy(tokens).to(dev), one)
+            for big, small in zip(cache_leaves(pool), cache_leaves(one)):
+                big[:, slot] = small[:, 0]
+        pos = torch.tensor([len(p) - 1 for p in prompts], device=dev)
+        for t in range(len(feed)):
+            tok = torch.from_numpy(np.asarray(feed[t], np.int64)[:, None]).to(dev)
+            logits, _ = model_lib.decode_step(params, cfg, tok, pos + t, pool)
+            out.append(logits.to(torch.float32).cpu().numpy())
+    return np.stack(out), kvmm.LAUNCHES["fast"], B + len(feed)
+
+
+def serve_logged(eng, prompts, max_new):
+    """Serve ``prompts`` to the end: (tokens by request, every tick's logits
+    of the whole pool, each step's seconds on the host clock)."""
+    ticks, step_s = [], []
+    real = eng.runner.sample
+
+    def sample(logits):
+        ticks.append(np.array(logits))
+        return real(logits)
+
+    eng.runner.sample = sample
+    try:
+        rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        while eng.pending or any(s is not None for s in eng.slots):
+            t0 = time.perf_counter()
+            eng.step()
+            step_s.append(time.perf_counter() - t0)
+        done = {r.rid: r for r in eng.run_until_done(max_ticks=0)}
+    finally:
+        del eng.runner.sample
+    return [done[i].generated for i in rids], ticks, step_s
+
+
+def rel_max(a, ref) -> float:
+    """max |a - ref| / max |ref|."""
+    return float(np.max(np.abs(a - ref)) / np.max(np.abs(ref)))
+
+
+def rel_l2(a, ref) -> float:
+    return float(np.linalg.norm((a - ref).ravel()) / np.linalg.norm(ref.ravel()))
+
+
+def tokens_held(one, rank):
+    """Served tokens against the one-device run's (``one``, ``rank``: the
+    ``serve_logged`` results of the same requests, admitted alike).  A
+    request's tokens are compared tick by tick: where both sides' top-2
+    margin exceeds twice the largest logit gap between them the tokens must
+    be equal (``tests/_moe_serving.py`` ``same_tokens``'s rule), elsewhere
+    they may part; after its first differing token the request's inputs
+    differ and the comparison stops.  Returns (ticks held, ticks compared,
+    failures)."""
+    held = compared = 0
+    fails = []
+    for i, (a_tok, b_tok) in enumerate(zip(one[0], rank[0])):
+        for t, (a, b) in enumerate(zip(a_tok, b_tok)):
+            la, lb = one[1][t][i], rank[1][t][i]
+            top_a, top_b = np.sort(la)[-2:], np.sort(lb)[-2:]
+            margin = min(top_a[1] - top_a[0], top_b[1] - top_b[0])
+            decisive = margin > 2 * float(np.max(np.abs(la - lb)))
+            compared += 1
+            if decisive and a != b:
+                fails.append(f"request {i} tick {t}: tokens {a} / {b} at margin {margin}")
+            held += int(decisive)
+            if a != b:
+                break
+    return held, compared, fails
+
+
+def save_weights(params, directory):
+    """Every leaf as an ``.npy`` (bf16 as its 16-bit words) and an index
+    {name: [file, dtype]}, for the ranks to memory-map."""
+    os.makedirs(directory)
+    index = {}
+    for i, (name, t) in enumerate(flatten(params).items()):
+        index[name] = [f"{i}.npy", str(t.dtype).replace("torch.", "")]
+        np.save(os.path.join(directory, index[name][0]), tensor_to_numpy(t))
+    with open(os.path.join(directory, "index.json"), "w") as f:
+        json.dump(index, f)
+
+
+def load_rank_weights(directory, cfg, mesh, dev):
+    """This rank's copy of the saved params: every MoE FFN's router and banks
+    cut to the rank's slices of the memory-mapped files (``moe.param_specs``
+    under ``cfg``'s layout), every other leaf whole."""
+    with open(os.path.join(directory, "index.json")) as f:
+        index = json.load(f)
+    flat = {n: np.load(os.path.join(directory, fname), mmap_mode="r") for n, (fname, _) in index.items()}
+    tree = {}
+    for name, a in flat.items():
+        node = tree
+        *path, last = name.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = a
+    specs = moe_mod.param_specs(tree, cfg, mesh)
+
+    def leaf(node, path):
+        if isinstance(node, dict):
+            return {k: leaf(v, path + (k,)) for k, v in node.items()}
+        name = "/".join(path)
+        if name in specs:
+            node = tprog.local_slice(node, specs[name], mesh.shape, mesh.coords)
+        t = torch.from_numpy(np.ascontiguousarray(node))
+        return (t.view(torch.bfloat16) if index[name][1] == "bfloat16" else t).to(dev)
+
+    return leaf(tree, ())
+
+
+def mla_card_vs_cpu(params, cfg, dev, seed):
+    """Layer 0's MLA block at full width with the crossbar off, in float32
+    (the bf16 weights widened), on the card and on the CPU: a 1 x 32 prompt
+    into a cache of ``DEEPSEEK_SEQ``, then 4 decode steps; max |dy| / max |y|
+    and of the caches, each step."""
+    mixer = {k: v[0].to(torch.float32) for k, v in params["stage0"]["b0"]["mixer"].items()}
+    cpu_mixer = {k: v.cpu() for k, v in mixer.items()}
+    gen = torch.Generator().manual_seed(seed)
+    steps = [torch.randn((1, 32, cfg.d_model), generator=gen)] + [
+        torch.randn((1, 1, cfg.d_model), generator=gen) for _ in range(4)
+    ]
+    caches = {d: attn_mod.init_attention_cache(cfg, 1, DEEPSEEK_SEQ, torch.float32, d) for d in (dev, "cpu")}
+    worst, readings = 0.0, []
+    for t, x in enumerate(steps):
+        pos = torch.arange(32) if t == 0 else torch.tensor([31 + t])
+        ys = {}
+        for d, m in ((dev, mixer), ("cpu", cpu_mixer)):
+            decode = None if t == 0 else pos.to(d)
+            positions = pos.to(d) if t == 0 else pos.to(d)[:, None]
+            ys[d], _ = attn_mod.attention_block(m, x.to(d), cfg, "attn", positions, caches[d], decode)
+        y_card, y_cpu = ys[dev].cpu().numpy(), ys["cpu"].numpy()
+        r = dict(step=t, y=rel_max(y_card, y_cpu), **{
+            n: rel_max(caches[dev][n].cpu().numpy(), caches["cpu"][n].numpy()) for n in ("latent", "k_rope")
+        })
+        readings.append(r)
+        worst = max(worst, r["y"], r["latent"], r["k_rope"])
+    return dict(worst=worst, gate=DEEPSEEK_MLA_CPU_GATE, steps=readings)
+
+
+def serve_deepseek_one(rank, workdir, seed, device, t0):
+    """The one-device process of serve_deepseek: deepseek-v2 at depth 2 on
+    an ideal chip through ``ServingEngine`` (``serve_phase``), its store round
+    trip (the store the ranks then restore), the bf16 weights saved for the
+    ranks, the MLA block card against CPU, the ranks' requests served and
+    teacher-forced (chip and crossbar off, at the config's capacity and
+    uncapped), then tick_profile_deepseek, graph_vs_eager_deepseek and
+    prefill_vs_eager_deepseek.  Its lines are printed here; what the ranks
+    are held to is written under ``workdir``."""
+    global _T0
+    _T0 = t0  # the parent's clock (perf_counter is one monotonic clock a machine)
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = set()
+    with k1_shapes(shapes):
+        cfg = deepseek_serve_config()
+        t = time.perf_counter()
+        params = model_lib.init_model(cfg, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        ideal = CrossbarMode(enabled=True, strict=True)
+        line, launches, eng = serve_phase(
+            "serve_deepseek", cfg, params, ideal, "fast", dev, seed + 1, False, longest=DEEPSEEK_PROMPT_MAX,
+        )
+        want = moe_vmm_calls(cfg, moe_mod.SINGLE_DEVICE)
+        require(
+            line["projections"] == want == DEEPSEEK_K1_PER_FORWARD,
+            f"serve_deepseek: {line['projections']} projections a forward, the config gives {want}, "
+            f"expected {DEEPSEEK_K1_PER_FORWARD}",
+        )
+        require(line["prefill_graphs"] == [DEEPSEEK_PROMPT_MAX], f"serve_deepseek: buckets {line['prefill_graphs']}")
+        param_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
+        chip_gb = sum(
+            getattr(a, f).numel() * getattr(a, f).element_size()
+            for a in eng.programmed.by_name.values() for f in tprog.ARTIFACT_ARRAY_FIELDS if getattr(a, f) is not None
+        ) / 1e9
+        # the store: saved, verified, restored into a second engine that
+        # serves the same tokens; the ranks restore their slices from it
+        store = os.path.join(workdir, "store")
+        t = time.perf_counter()
+        eng.save_artifacts(store)
+        save_s = time.perf_counter() - t
+        report = verify_store(store, expected=tprog.expected_artifact_names(params))
+        require(report.ok, f"serve_deepseek: the saved chip fails verify_store: {report.summary()}")
+        t = time.perf_counter()
+        eng2 = ServingEngine(cfg, params, max_batch=4, max_seq=DEEPSEEK_SEQ, device=dev, restore_artifacts=store,
+                             crossbar=CrossbarMode(enabled=True, strict=True))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        prompts = make_requests(cfg, seed + 1, longest=DEEPSEEK_PROMPT_MAX)
+        again = [r.generated for r in drive(eng2, prompts, max_new=16)[0]]
+        require(again == line["tokens"], "serve_deepseek: the restored chip served different tokens")
+        del eng2
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        save_weights(params, os.path.join(workdir, "weights"))
+        weights_s = time.perf_counter() - t
+        # the ranks' requests on this engine, then teacher-forced
+        rank_prompts, feed = deepseek_rank_traffic(cfg, seed + 5)
+        served = serve_logged(eng, rank_prompts, DEEPSEEK_RANK_NEW)
+        forced, forced_k1, routes = {}, {}, []
+        for capped in (True, False):
+            c = deepseek_serve_config(uncapped=not capped)
+            for path, chip in (("chip", eng.programmed), ("digital", None)):
+                key = f"{path}/{'capped' if capped else 'uncapped'}"
+                forced[key], k1, forwards = forced_logits(
+                    params, c, chip, None, dev, rank_prompts, feed, record=routes if key == "digital/uncapped" else None)
+                forced_k1[key] = k1
+                require(k1 == (want * forwards if chip is not None else 0),
+                        f"serve_deepseek: {k1} K1 launches in {forwards} teacher-forced forwards ({key})")
+        np.savez(os.path.join(workdir, "one_device.npz"), tokens=np.array(served[0]), ticks=np.stack(served[1]),
+                 **{k.replace("/", "__"): v for k, v in forced.items()})
+        # the digital uncapped run's routing, which expert-TP's digital run replays
+        np.savez(os.path.join(workdir, "routes.npz"), **{
+            f"{f}{i}": a for i, r in enumerate(routes) for f, a in zip(("ids", "gates"), r)})
+        rel = rel_l2(forced["chip/capped"], forced["digital/capped"])
+        head = eng.programmed.by_name["head"]
+        line.update(
+            layers=cfg.n_layers, reduced=[f"depth {get_config(DEEPSEEK).n_layers} -> {cfg.n_layers}"],
+            widths=dict(d_model=cfg.d_model, heads=cfg.n_heads, head_dim=cfg.head_dim, kv_lora_rank=cfg.kv_lora_rank,
+                        qk_rope_dim=cfg.qk_rope_dim, dense_d_ff=cfg.d_ff, experts=cfg.moe_experts,
+                        top_k=cfg.moe_top_k, expert_d_ff=cfg.moe_d_ff, shared_experts=cfg.moe_shared_experts,
+                        vocab=cfg.vocab_size),
+            capacity_factor=cfg.moe_capacity_factor, k1_launches_per_forward=want,
+            k1_reckoning="layer 0: 3 MLA + 2 dense FFN; layer 1: 3 MLA + router + 160 experts x 3 + shared 3; head 1",
+            init_seconds=init_s, param_gb=param_gb, chip_gb=chip_gb, save_seconds=save_s, restore_seconds=restore_s,
+            weights_save_seconds=weights_s, store_restored_tokens_equal=True,
+            verify_store_findings=len(report.findings), verified_artifacts=report.n_artifacts,
+            capture_seconds_total=line["capture_seconds"] + sum(line["prefill_capture_seconds"].values()),
+            logits_rel_l2_vs_plain_matmul=rel, rel_l2_gate=DEEPSEEK_REL_L2_MAX,
+            head_w_scale=float(head.w_scale), head_drop_lsb=layer_scaled_spec(head.spec, cfg.d_model).drop_lsb,
+            mla_card_vs_cpu=mla_card_vs_cpu(params, cfg, dev, seed + 7),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        )
+        emit(line)
+        require(rel < DEEPSEEK_REL_L2_MAX, f"serve_deepseek: rel-L2 {rel} to the plain-matmul model")
+        mla = line["mla_card_vs_cpu"]
+        require(mla["worst"] <= DEEPSEEK_MLA_CPU_GATE, f"serve_deepseek: the MLA block card vs CPU {mla}")
+        # where a tick goes, then replay against eager, tick and admission
+        prof = tick_profile("tick_profile_deepseek", eng, make_requests(cfg, seed + 3, longest=DEEPSEEK_PROMPT_MAX),
+                            ticks=3, classes=DEEPSEEK_TICK_CLASSES)
+        require(
+            {k["name"]: k["calls_per_tick"] for k in prof["kernels"]} == {"fast_kernel": want},
+            f"tick_profile_deepseek: kernels a tick {prof['kernels']}",
+        )
+        graph_vs_eager("deepseek", eng, make_requests(cfg, seed + 6, longest=DEEPSEEK_PROMPT_MAX))
+        prefill_vs_eager("deepseek", eng.runner, seed + 9, buckets=(DEEPSEEK_PROMPT_MAX,))
+    return dict(launches=launches, shapes=sorted(shapes), forced_k1=forced_k1,
+                head_lsb=dict(w_scale=float(head.w_scale), drop_lsb=line["head_drop_lsb"]))
+
+
+def serve_deepseek_rank(rank, workdir, seed, t_spawn, device):
+    """One rank of serve_deepseek_ranks, on each mesh of
+    ``DEEPSEEK_MESHES`` in turn: its copy of the weights (its slices of the
+    memory-mapped banks), a ``ServingEngine(mesh=, restore_artifacts=)`` of
+    its slices of the store, the ranks' requests served, then teacher-forced
+    on the chip and with the crossbar off (EP at the config's capacity,
+    expert-TP uncapped); on EP also with ranks 0 and 1's bank slices
+    swapped (a planted fault)."""
+    up_s = time.time() - t_spawn
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = {shape: make_local_mesh(*shape) for _, shape, _ in DEEPSEEK_MESHES}
+    out = dict(spawn_seconds=up_s, meshes={})
+    shapes = set()
+    with k1_shapes(shapes):
+        for name, shape, layout in DEEPSEEK_MESHES:
+            mesh = meshes[shape]
+            cfg = deepseek_serve_config(layout)
+            rank_prompts, feed = deepseek_rank_traffic(cfg, seed + 5)
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            params = load_rank_weights(os.path.join(workdir, "weights"), cfg, mesh, dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            t = time.perf_counter()
+            eng = ServingEngine(cfg, params, max_batch=4, max_seq=DEEPSEEK_SEQ, mesh=mesh, device=dev,
+                                restore_artifacts=os.path.join(workdir, "store"),
+                                crossbar=CrossbarMode(enabled=True, strict=True))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            kvmm.reset_counters()  # the engine's serving run alone
+            tokens, ticks, step_s = serve_logged(eng, rank_prompts, DEEPSEEK_RANK_NEW)
+            res = dict(coords=mesh.coords, load_seconds=load_s, restore_seconds=restore_s, step_seconds=step_s,
+                       serve_k1=dict(kvmm.LAUNCHES), serve_forwards=len(rank_prompts) + len(ticks),
+                       tokens=tokens, ticks=np.stack(ticks) if rank == 0 else None,
+                       graphs=(eng.runner.decode_graph is None and not eng.runner.prefill_graphs),
+                       k1_per_forward=eng.programmed.calls_per_forward,
+                       bank=list(eng.programmed.by_name["stage1/b0/ffn/wi"].shape))
+            forced_cfg = deepseek_serve_config(layout, uncapped=(layout == "expert_tp"))
+            own = []
+            for path, chip in (("chip", eng.programmed), ("digital", None)):
+                t = time.perf_counter()
+                res[path], res[f"{path}_k1"], res["forwards"] = forced_logits(
+                    params, forced_cfg, chip, mesh, dev, rank_prompts, feed, record=own if path == "digital" else None)
+                res[f"{path}_seconds"] = time.perf_counter() - t
+            if layout == "expert_tp":
+                # digitally again, routed as one device's digital run routed
+                # (a bf16 K-partial of the router reorders near-tied experts)
+                with np.load(os.path.join(workdir, "routes.npz")) as z:
+                    one_routes = [(z[f"ids{i}"], z[f"gates{i}"]) for i in range(len(z.files) // 2)]
+                res["digital_one_routing"] = forced_logits(
+                    params, forced_cfg, None, mesh, dev, rank_prompts, feed, replay=one_routes)[0]
+                alike = []
+                for (mine, _), (theirs, _) in zip(own, one_routes):
+                    k = mine.shape[-1]
+                    a, b = mine.reshape(-1, k), theirs.reshape(-1, k)
+                    if a.shape[0] < b.shape[0]:
+                        lo = mesh.axis_index("data") * a.shape[0]
+                        b = b[lo:lo + a.shape[0]]
+                    alike += [set(x) == set(y) for x, y in zip(a.tolist(), b.tolist())]
+                res["tokens_routed_alike"] = float(np.mean(alike))
+            if name == "ep":
+                chip = eng.programmed
+                del eng
+                if mesh.coords["model"] in (0, 1):  # ranks 0 and 1 serve each other's bank slices
+                    chip = None
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    other = SimpleNamespace(shape=mesh.shape, coords=dict(mesh.coords, model=1 - mesh.coords["model"]))
+                    chip = restore_programmed(os.path.join(workdir, "store"), device=dev, mesh=other,
+                                              specs=moe_mod.param_specs(params, cfg, mesh))
+                res["swapped"], res["swapped_k1"], _ = forced_logits(params, forced_cfg, chip, mesh, dev, rank_prompts, feed)
+            eng = chip = params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["meshes"][name] = res
+    out["traffic"] = {f"{k[0]}x{k[1]}": m.traffic for k, m in meshes.items()}
+    out["shapes"] = sorted(shapes)
+    return out
+
+
+def serve_deepseek(dev, seed):
+    """serve_deepseek (its own process), then serve_deepseek_ranks: the
+    ranks' tokens identical on every rank; EP teacher-forced on the chip
+    within ``DEEPSEEK_LOGITS_GATE`` of one device, EP and expert-TP
+    digitally within ``DEEPSEEK_DIGITAL_GATE``, expert-TP's own routing
+    alike on ``DEEPSEEK_ROUTED_ALIKE_MIN`` of the rows; the planted swap
+    outside the chip gate; EP's served tokens the one device's where
+    ``tokens_held`` says they must be; K1's launches a forward of each
+    rank's serving run asserted and every K1 launch of both phases at a
+    shape the kernels phase holds.  Returns the launches of the two
+    phases' serving runs."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    covered = {(M, K, N) for (K, N), rows in DEEPSEEK_SHAPES for M in rows}
+    with tempfile.TemporaryDirectory(prefix="deepseek_serve_") as work:
+        one = run_ranks(serve_deepseek_one, 1, (work, seed, str(dev), _T0), backend=DEEPSEEK_BACKEND,
+                        timeout_s=400)[0]
+        one_s = time.perf_counter() - t_phase
+        require(set(map(tuple, one["shapes"])) <= covered,
+                f"serve_deepseek: K1 launched at {sorted(set(map(tuple, one['shapes'])) - covered)}, not held")
+        with np.load(os.path.join(work, "one_device.npz")) as z:
+            ref = {k.replace("__", "/"): z[k] for k in z.files}
+        t = time.perf_counter()
+        ranks = run_ranks(serve_deepseek_rank, DEEPSEEK_RANKS, (work, seed, time.time(), str(dev)),
+                          backend=DEEPSEEK_BACKEND, timeout_s=400)
+        ranks_s = time.perf_counter() - t
+    fails, meshes, total, forced_total, planted_total = [], {}, 0, 0, 0
+    for name, shape, layout in DEEPSEEK_MESHES:
+        res = [r["meshes"][name] for r in ranks]
+        cap = "capped" if layout != "expert_tp" else "uncapped"
+        entry = dict(mesh=list(shape), layout=layout, capacity=cap, bank_per_rank=res[0]["bank"],
+                     k1_per_forward=[r["k1_per_forward"] for r in res])
+        if any(r["k1_per_forward"] != DEEPSEEK_RANK_K1[name] for r in res):
+            fails.append(f"{name}: K1 a forward {entry['k1_per_forward']}, expected {DEEPSEEK_RANK_K1[name]}")
+        entry["serve_forwards"] = [r["serve_forwards"] for r in res]
+        entry["serve_k1_launches"] = [r["serve_k1"]["fast"] for r in res]
+        for r in res:
+            # the engine's serving run: K1 once a projection of each of its
+            # forwards (its prefills and ticks), and no other kernel
+            want = {k: DEEPSEEK_RANK_K1[name] * r["serve_forwards"] if k == "fast" else 0 for k in r["serve_k1"]}
+            total += r["serve_k1"]["fast"]
+            if r["serve_k1"] != want:
+                fails.append(f"{name} rank {r['coords']}: serving launches {r['serve_k1']}, expected {want}")
+            want = DEEPSEEK_RANK_K1[name] * r["forwards"]
+            forced_total += r["chip_k1"]
+            planted_total += r.get("swapped_k1", 0)
+            if r["chip_k1"] != want or r["digital_k1"] != 0:
+                fails.append(f"{name} rank {r['coords']}: teacher-forced K1 launches {r['chip_k1']} / "
+                             f"{r['digital_k1']}, expected {want} / 0")
+        entry["tokens_equal_across_ranks"] = all(r["tokens"] == res[0]["tokens"] for r in res)
+        entry["forced_equal_across_ranks"] = all(
+            np.array_equal(r[p], res[0][p]) for r in res for p in ("chip", "digital"))
+        if not (entry["tokens_equal_across_ranks"] and entry["forced_equal_across_ranks"]):
+            fails.append(f"{name}: the ranks' tokens or logits differ")
+        entry["no_capture"] = all(r["graphs"] for r in res)
+        entry["chip_vs_one_device"] = rel_max(res[0]["chip"], ref[f"chip/{cap}"])
+        entry["digital_vs_one_device"] = rel_max(res[0]["digital"], ref[f"digital/{cap}"])
+        entry["chip_rel_l2_vs_plain_matmul"] = rel_l2(res[0]["chip"], ref[f"digital/{cap}"])
+        entry["finite"] = bool(np.isfinite(res[0]["chip"]).all() and np.isfinite(res[0]["digital"]).all())
+        if not entry["finite"] or entry["chip_rel_l2_vs_plain_matmul"] >= DEEPSEEK_REL_L2_MAX:
+            fails.append(f"{name}: chip logits not finite or rel-L2 {entry['chip_rel_l2_vs_plain_matmul']}")
+        if layout == "expert_tp":
+            entry["digital_same_routing_vs_one_device"] = rel_max(res[0]["digital_one_routing"], ref["digital/uncapped"])
+            entry["digital_tokens_routed_alike"] = [r["tokens_routed_alike"] for r in res]
+            gated = {"digital_same_routing_vs_one_device": DEEPSEEK_DIGITAL_GATE}
+            if min(entry["digital_tokens_routed_alike"]) < DEEPSEEK_ROUTED_ALIKE_MIN:
+                fails.append(f"{name}: tokens routed as one device routed {entry['digital_tokens_routed_alike']}, "
+                             f"floor {DEEPSEEK_ROUTED_ALIKE_MIN}")
+        else:
+            gated = {"digital_vs_one_device": DEEPSEEK_DIGITAL_GATE, "chip_vs_one_device": DEEPSEEK_LOGITS_GATE}
+        entry["gated"] = gated
+        for k, gate in gated.items():
+            if not entry[k] < gate:
+                fails.append(f"{name}: {k} {entry[k]}, gate {gate}")
+        if name == "ep":
+            entry["swapped_banks_vs_one_device"] = rel_max(res[0]["swapped"], ref["chip/capped"])
+            entry["swapped_banks_caught"] = entry["swapped_banks_vs_one_device"] >= DEEPSEEK_LOGITS_GATE
+            if not entry["swapped_banks_caught"]:
+                fails.append(f"ep: the planted bank swap passed the gate ({entry['swapped_banks_vs_one_device']})")
+            held, compared, tok_fails = tokens_held(
+                (ref["tokens"].tolist(), list(ref["ticks"])), (res[0]["tokens"], list(res[0]["ticks"])))
+            entry.update(served_ticks_held=held, served_ticks_compared=compared,
+                         served_tokens_equal_one_device=res[0]["tokens"] == ref["tokens"].tolist())
+            fails += [f"ep served: {f}" for f in tok_fails]
+        entry.update(
+            load_seconds_per_rank=[r["load_seconds"] for r in res],
+            restore_seconds_per_rank=[r["restore_seconds"] for r in res],
+            step_ms_median=1e3 * statistics.median(res[0]["step_seconds"]),
+            forced_chip_seconds=[r["chip_seconds"] for r in res],
+            forced_digital_seconds=[r["digital_seconds"] for r in res],
+            peak_gb_per_rank=[r["peak_gb"] for r in res],
+        )
+        meshes[name] = entry
+    shapes = {tuple(s) for r in ranks for s in r["shapes"]}
+    if not shapes <= covered:
+        fails.append(f"K1 launched at (M, K, N) {sorted(shapes - covered)}, not held in the kernels phase")
+    traffic = ranks[0]["traffic"]
+    line = dict(
+        phase="serve_deepseek_ranks", arch=DEEPSEEK, ranks=DEEPSEEK_RANKS, backend=DEEPSEEK_BACKEND,
+        layers=DEEPSEEK_LAYERS, reduced=[f"depth {get_config(DEEPSEEK).n_layers} -> {DEEPSEEK_LAYERS}"],
+        requests=DEEPSEEK_RANK_REQUESTS, new_tokens=DEEPSEEK_RANK_NEW, chip_gate=DEEPSEEK_LOGITS_GATE,
+        digital_gate=DEEPSEEK_DIGITAL_GATE, routed_alike_min=DEEPSEEK_ROUTED_ALIKE_MIN,
+        meshes=meshes, one_device_seconds=one_s, ranks_seconds=ranks_s,
+        spawn_seconds_per_rank=[r["spawn_seconds"] for r in ranks], wire=traffic,
+        staged_through_host=sorted({c for t in traffic.values() for c, by in t.items()
+                                    if any(v["staged"] for v in by.values())}),
+        wire_dtypes=sorted({d for t in traffic.values() for by in t.values() for d in by}),
+        k1_shapes=sorted(shapes), k1_launches_serving=total, k1_launches_teacher_forced=forced_total,
+        k1_launches_planted_swap=planted_total, fails=fails, seconds=time.perf_counter() - t_phase,
+    )
+    emit(line)
+    require(not fails, f"serve_deepseek_ranks: {fails}")
+    launches = {k: 0 for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
+    launches["fast"] = total
+    return one["launches"], launches
+
+
+def serve_launcher():
+    """The serving launcher as a user runs it, on the card:
+    ``python -m repro_torch.launch.serve --arch deepseek-v2-236b --reduced
+    --crossbar``; exit 0 and its lines parsed."""
+    t = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", DEEPSEEK, "--reduced", "--crossbar"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    lines = proc.stdout.splitlines()
+    served = next((ln for ln in lines if ln.startswith("[serve]")), "")
+    energy = next((ln for ln in lines if ln.startswith("[newton]")), "")
+    words = served.split()
+    line = dict(phase="serve_launcher", command=" ".join(cmd[1:]), returncode=proc.returncode,
+                seconds=time.perf_counter() - t, serve_line=served, energy_line=energy,
+                requests=int(words[1]) if len(words) > 1 else None,
+                tokens=int(words[3]) if len(words) > 3 else None,
+                stderr_tail=proc.stderr[-2000:] if proc.returncode else "")
+    emit(line)
+    require(proc.returncode == 0, f"serve_launcher exited {proc.returncode}")
+    require(line["requests"] == 8 and line["tokens"] == 8 * 16 and "[crossbar datapath]" in served and energy,
+            f"serve_launcher: unexpected output {lines[:3]}")
+
+
+def tick_profile(phase, eng, prompts, ticks=3, classes=None):
     """Where one decode tick goes: ``ticks`` steady decode ticks of a full
-    slot pool (graph replays) in one ``profile_window``."""
-    for p in prompts[:4]:
-        eng.submit(p, max_new_tokens=ticks + 8)
-    for _ in range(3):  # admission and warm ticks
-        eng.step()
+    slot pool (graph replays) in one ``profile_window`` (``classes`` as
+    there).  Where the profiler dropped records of the window, the pool is
+    drained and filled anew, up to ``PROFILE_RUNS`` windows in all."""
     def steps():
         for _ in range(ticks):
             eng.step()
 
-    line = profile_window(phase, steps, ticks)
-    eng.run_until_done()
-    return line
+    dropped = []
+    while True:
+        for p in prompts[:4]:
+            eng.submit(p, max_new_tokens=ticks + 8)
+        for _ in range(3):  # admission and warm ticks
+            eng.step()
+        try:
+            line = profile_window(phase, steps, ticks, classes)
+        except RecordsDropped as e:
+            dropped.append(e.short)
+            require(len(dropped) < PROFILE_RUNS, f"{phase}: the profiler dropped records in {len(dropped)} windows: {dropped}")
+            continue
+        finally:
+            eng.run_until_done()
+        return line
 
 
 class RecordsDropped(RuntimeError):
-    """The profiler saw fewer calls of our kernels in a window than the
-    window credited, and no kernel more: it dropped device records."""
+    """The profiler dropped device records of a window: it saw fewer calls
+    of our kernels than the window credited, and of no kernel more, or none
+    of the window's prologue (``short["prologue"]``)."""
 
     def __init__(self, phase, short):
         super().__init__(f"chip_smoke check failed: {phase}: the profiler dropped records, calls a tick short {short}")
         self.short = short
 
 
-def profile_window(phase, run, ticks):
+@contextlib.contextmanager
+def profiler_session():
+    """A ``torch.profiler`` session (CPU + CUDA activities) opened by
+    ``PROFILE_PROLOGUE`` spin kernels and a synchronise; yields the profile.
+    The profiler loses a session's first device records: a count that grows
+    with the process's age (about one every 14 s on an H100, whatever the
+    spins' length, and whether or not the host waits before or after the
+    session opens), and at times a run of hundreds anywhere in the session
+    (``profiler_loss_probe.py``).  The steady loss falls on the prologue; a
+    session that kept none of it may have lost records of its own, and a
+    run lost later shows as kernels short of their count (``profile_window``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PROLOGUE):
+            torch.cuda._sleep(PROLOGUE_SPIN_CYCLES)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def device_entries(prof):
+    """The device-side entries of a ``profiler_session`` (kernels, memcpys)
+    as (name, ms, calls), heaviest first, and the prologue's spins seen.  A
+    CPU op's entry counts the device time of the kernels it launched a
+    second time, so it is left out."""
+    from torch.autograd import DeviceType
+
+    kernels, prologue_seen = [], 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            if PROLOGUE_KERNEL in e.key:
+                prologue_seen += e.count
+            else:
+                kernels.append((e.key, e.self_device_time_total / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    return kernels, prologue_seen
+
+
+def profile_window(phase, run, ticks, classes=None):
     """``run()`` (``ticks`` steps of a serve loop; it may return a dict of
     fields for the line) under ``torch.profiler``
     (CPU + CUDA activities).  Device busy time is the sum of the kernels' own
@@ -2219,25 +2943,20 @@ def profile_window(phase, run, ticks):
     window added to the wrappers' counters (summed over every trace entry that
     names the kernel).
 
-    The profiler loses the first device records of a session, more the
-    longer the process has run, whether or not the device idles before the
-    first step.  So each window opens with ``PROFILE_PROLOGUE`` spin kernels
-    and a synchronise: the loss falls on them, and the line reports how many
-    were lost (``prologue_records_lost``).  A window that saw none of them
-    may have lost records of its own, and fails.  A window in which the
-    profiler saw fewer calls of some kernel than were credited, and of none
-    more, raises ``RecordsDropped`` (its line is emitted as
-    ``<phase>_dropped``); any other disagreement fails."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    The window runs in a ``profiler_session``, and the line reports how
+    many of its prologue's spins the profiler lost
+    (``prologue_records_lost``).  A window that saw none of them may have
+    lost records of its own: it raises ``RecordsDropped``, as does a window
+    in which the profiler saw fewer calls of some kernel than were credited,
+    and of none more (its line is emitted as ``<phase>_dropped``); any other
+    disagreement fails.  ``classes``
+    ({class: names}, in order) splits the busy time a tick by kernel name:
+    a kernel goes to the first class one of whose names its name holds,
+    else to "rest"."""
     counters = lambda: (dict(kvmm.LAUNCHES, **kscan.LAUNCHES), dict(tprog.PLANNED_CALLS))
     torch.cuda.synchronize()
     before = counters()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_PROLOGUE):
-            torch.cuda._sleep(PROLOGUE_SPIN_CYCLES)
-        torch.cuda.synchronize()
+    with profiler_session() as prof:
         t0 = time.perf_counter()
         extra = run() or {}
         torch.cuda.synchronize()
@@ -2245,16 +2964,7 @@ def profile_window(phase, run, ticks):
     after = counters()
     credited = {k: n - before[0].get(k, 0) for k, n in after[0].items() if n - before[0].get(k, 0)}
     planned = {k: (n - before[1].get(k, 0)) / ticks for k, n in after[1].items() if n - before[1].get(k, 0)}
-    kernels, prologue_seen = [], 0
-    for e in prof.key_averages():
-        # device-side entries only (kernels, memcpys): a CPU op's entry counts
-        # the device time of the kernels it launched a second time
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            if PROLOGUE_KERNEL in e.key:
-                prologue_seen += e.count
-            else:
-                kernels.append((e.key, e.self_device_time_total / 1e3, e.count))
-    kernels.sort(key=lambda k: -k[1])
+    kernels, prologue_seen = device_entries(prof)
     busy_ms = sum(k[1] for k in kernels)
     line = dict(
         phase=phase, ticks=ticks, **extra, wall_ms_per_tick_profiled=wall_ms / ticks,
@@ -2268,6 +2978,11 @@ def profile_window(phase, run, ticks):
             k[2] for k in kernels if any(TRACE_NAMES[c] in k[0] for c in VMM_COUNTERS)
         ) / ticks,
     )
+    if classes:
+        by = dict.fromkeys((*classes, "rest"), 0.0)
+        for name, ms, _ in kernels:
+            by[next((c for c, keys in classes.items() if any(key in name for key in keys)), "rest")] += ms / ticks
+        line["busy_ms_per_tick_by_class"] = by
     for counter, n in credited.items():
         name = TRACE_NAMES[counter]
         mine = [k for k in kernels if name in k[0]]
@@ -2278,14 +2993,12 @@ def profile_window(phase, run, ticks):
         ))
     line["profiler_sees_graph_kernels"] = all(k["calls_per_tick"] > 0 for k in line["kernels"])
     short = {k["name"]: k["credited_per_tick"] - k["calls_per_tick"] for k in line["kernels"]}
-    if any(v > 0 for v in short.values()) and all(v >= 0 for v in short.values()):
+    if prologue_seen == 0:
+        short["prologue"] = PROFILE_PROLOGUE
+    if prologue_seen == 0 or (any(v > 0 for v in short.values()) and all(v >= 0 for v in short.values())):
         emit(dict(line, phase=f"{phase}_dropped"))
         raise RecordsDropped(phase, short)
     emit(line)
-    require(
-        prologue_seen > 0,
-        f"{phase}: the profiler lost all {PROFILE_PROLOGUE} prologue records, so maybe some of the window's",
-    )
     require(line["kernels"] or planned, f"{phase}: no kernel launch or planned call was credited in the window")
     for k in line["kernels"]:
         require(
@@ -2447,7 +3160,7 @@ def prefill_vs_eager(path, runner, seed, buckets=(32, 64, 128, 256)):
     one-slot cache and the slot ``torch.equal`` every time; both admission
     medians over the three last pairs (host clock), a replay's device span
     (CUDA events), the capture's seconds and the graph's pool bytes."""
-    require(runner.max_seq == buckets[-1], f"prefill_vs_eager_{path}: max_seq {runner.max_seq}")
+    require(runner.max_seq >= buckets[-1], f"prefill_vs_eager_{path}: max_seq {runner.max_seq}")
     rng = np.random.default_rng(seed)
     pools = [runner.init_cache(1), runner.init_cache(1)]
     lines, shortest = [], 1
@@ -3689,31 +4402,21 @@ def gemm_kind(name):
 
 
 def train_profile(step_fn, p, o, step, batch, steps=2):
-    """``steps`` train steps under ``torch.profiler``, opened by the spin
-    prologue (``profile_window``): device busy ms and launches a step, the
-    device's idle share, device ms by kernel class (``gemm_kind``) and the
-    heaviest kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_PROLOGUE):
-            torch.cuda._sleep(PROLOGUE_SPIN_CYCLES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            p, o, step, _ = step_fn(p, o, step, batch)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels, prologue_seen = [], 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            if PROLOGUE_KERNEL in e.key:
-                prologue_seen += e.count
-            else:
-                kernels.append((e.key, e.self_device_time_total / 1e3, e.count))
-    kernels.sort(key=lambda k: -k[1])
+    """``steps`` train steps in a ``profiler_session``: device busy ms and
+    launches a step, the device's idle share, device ms by kernel class
+    (``gemm_kind``) and the heaviest kernels.  A window whose prologue the
+    profiler lost whole is taken anew, up to ``PROFILE_RUNS`` windows."""
+    for run in range(PROFILE_RUNS):
+        with profiler_session() as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                p, o, step, _ = step_fn(p, o, step, batch)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels, prologue_seen = device_entries(prof)
+        if prologue_seen:
+            break
+        emit(dict(phase="train_profile_dropped", window=run, prologue_records_lost=PROFILE_PROLOGUE))
     busy_ms = sum(k[1] for k in kernels)
     by_kind = {}
     for name, ms, _ in kernels:
@@ -3726,7 +4429,10 @@ def train_profile(step_fn, p, o, step, batch, steps=2):
         prologue_records_lost=PROFILE_PROLOGUE - prologue_seen,
     )
     emit(line)
-    require(prologue_seen > 0, f"train_profile: the profiler lost all {PROFILE_PROLOGUE} prologue records")
+    require(
+        prologue_seen > 0,
+        f"train_profile: the profiler lost all {PROFILE_PROLOGUE} prologue records in {PROFILE_RUNS} windows",
+    )
     require(busy_ms > 0, "train_profile: no device time in the window")
     return line
 
@@ -4016,6 +4722,10 @@ def main() -> int:
     moe_dispatch_card_vs_cpu(dev, args.seed + 52)
     # deepseek-v2's MoE FFN at published widths over 4 rank processes
     by_path["moe_ranks_deepseek"] = moe_ranks_deepseek(dev, args.seed + 53)
+    # deepseek-v2 served whole at depth 2 on one device, then over 4 rank
+    # processes through ServingEngine(mesh=); the serving launcher
+    by_path["serve_deepseek"], by_path["serve_deepseek_ranks"] = serve_deepseek(dev, args.seed + 54)
+    serve_launcher()
     # training: smollm-360m at full width on the card, its trained weights
     # then served from an ideal chip, and the launcher as a user runs it
     tcfg = get_config("smollm-360m")

@@ -1,8 +1,6 @@
 """Architecture registry of the port: ``get_config(name)`` returns the full
 config, ``reduced(cfg)`` the smoke-test variant.  Registered: the
-architectures the port serves whole (``ALL_ARCHS``), and deepseek-v2-236b,
-whose MoE FFN the port serves over ranks while the model's entry points
-refuse its multi-head latent attention."""
+architectures the port serves whole (``ALL_ARCHS``)."""
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     REGISTRY,
@@ -22,4 +20,5 @@ from repro_torch.configs import deepseek_v2_236b  # noqa: F401
 # the architectures served whole
 ALL_ARCHS = [
     "xlstm-350m", "smollm-360m", "gemma2-9b", "minitron-4b", "starcoder2-3b", "kimi-k2-1t-a32b",
+    "deepseek-v2-236b",
 ]

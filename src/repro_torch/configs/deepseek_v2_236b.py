@@ -5,9 +5,10 @@ decoupled RoPE dim 64, head_dim 128), vocab 102400.  MoE: 2 shared + 160
 routed experts, top-6, expert d_ff=1536; the first layer uses a dense FFN
 (d_ff=12288).  Adafactor states (1T-scale MoE training memory).
 
-The port serves its MoE FFN alone (``models.moe``, over ranks under the
-``expert_tp`` decode layout); its MLA blocks are refused by the model's entry
-points.
+The port serves it whole: MLA in the absorbed form
+(``models.attention``), the MoE FFN on one device or over ranks
+(``models.moe``; ``serving.engine.ServingEngine(mesh=)``, whose decode layout
+here is ``expert_tp``).
 """
 from repro_torch.configs.base import ModelConfig, StageSpec, register
 

@@ -1,10 +1,15 @@
-"""Grouped-query attention with KV caches for prefill/decode serving
-(counterpart of the GQA half of ``repro.models.attention``).
+"""Grouped-query attention and absorbed multi-head latent attention (MLA,
+deepseek-v2) with caches for prefill/decode serving (counterpart of
+``repro.models.attention``).
 
 Plain ``torch.einsum`` — the reference leaves attention to the compiler, so
 no kernel is owed here — with scores and softmax in float32.  GQA grouping
 stays inside the einsum so KV heads are never materialized repeated; prefill
 attention walks query chunks of ``Q_CHUNK`` to bound the live score tensor.
+MLA scores the queries against the latent cache directly (``w_uk`` absorbed
+into the query, ``w_uv`` applied after the context), so per-head keys and
+values are never materialized; its cache is ``latent`` (B, S, kv_lora_rank)
+and ``k_rope`` (B, S, qk_rope_dim).
 
 Caches are updated **in place** (the reference returns fresh arrays): the
 blocks write into the tensors they are handed and return them.
@@ -118,7 +123,7 @@ def attention_block(
     decode_pos: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     if cfg.kv_lora_rank:
-        raise NotImplementedError("multi-head latent attention is not ported yet")
+        return _mla_block(params, x, cfg, positions, cache, decode_pos)
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window if kind == "attn_local" else 0
@@ -152,9 +157,95 @@ def attention_block(
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, device="cuda"):
     if cfg.kv_lora_rank:
-        raise NotImplementedError("multi-head latent attention is not ported yet")
+        return {
+            "latent": torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, seq, cfg.qk_rope_dim), dtype=dtype, device=device),
+        }
     shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2), the absorbed form
+# ---------------------------------------------------------------------------
+
+def _contract(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` of two operands in float32 (the reference's
+    ``preferred_element_type=float32``: a bfloat16 operand widens exactly,
+    and the result is not rounded back to it)."""
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+def _mla_block(params, x, cfg: ModelConfig, positions, cache, decode_pos):
+    """The reference's ``_mla_block``: the query's no-rope part absorbs
+    ``w_uk`` (its einsum in the operands' promoted dtype, as the reference
+    computes it); scores are the latent scores plus the decoupled-rope
+    scores, both with the query cast to the key's dtype (the cache's, where
+    there is a cache) and summed in float32; the float32 softmax's weights,
+    cast to the latent's dtype, attend over the latent, and ``w_uv`` lifts
+    the context per head in float32, cast to ``x``'s dtype before ``wo``.
+
+    With a cache, a prefill writes the prompt's latents at the front of the
+    cache and scores against the whole cache, its positions past the prompt
+    masked (the reference's ``Sk = max_seq``); a decode writes its step at
+    ``decode_pos`` (0-d or (B,)) and masks each slot's positions past it."""
+    B, S, D = x.shape
+    H, dh, rope_d, lora = cfg.n_heads, cfg.head_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    scale = (dh + rope_d) ** -0.5
+
+    q = crossbar_linear(x, params["wq"], name="wq").reshape(B, S, H, dh + rope_d)
+    q_nope, q_rope = q[..., :dh], q[..., dh:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kvd = crossbar_linear(x, params["w_kv_down"], name="w_kv_down")  # (B, S, lora + rope)
+    latent, k_rope = kvd[..., :lora], kvd[..., lora:]
+    k_rope = apply_rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+
+    new_cache = None
+    if cache is not None:
+        if decode_pos is None:
+            cache["latent"][:, :S] = latent.to(cache["latent"].dtype)
+            cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+        else:
+            _cache_write(cache["latent"], latent, decode_pos)
+            _cache_write(cache["k_rope"], k_rope, decode_pos)
+        new_cache = cache
+        latent_k, rope_k = cache["latent"], cache["k_rope"]
+    else:
+        latent_k, rope_k = latent, k_rope
+    Sk = latent_k.shape[1]
+
+    # absorb w_uk into the query: q_abs (B, S, H, lora)
+    w_uk = params["w_uk"]
+    q_abs = _contract("bshd,lhd->bshl", q_nope, w_uk).to(torch.promote_types(q_nope.dtype, w_uk.dtype))
+    w_uv = params["w_uv"].to(torch.float32)
+    pos_k = torch.arange(Sk, device=x.device)
+
+    def block(qa: torch.Tensor, qr: torch.Tensor, start: int) -> torch.Tensor:
+        s = _contract("bqhl,bsl->bqhs", qa.to(latent_k.dtype), latent_k)
+        s = s + _contract("bqhr,bsr->bqhs", qr.to(rope_k.dtype), rope_k)
+        s = s * scale
+        if decode_pos is None:
+            pos_q = start + torch.arange(qa.shape[1], device=x.device)
+            m = (pos_k[None, :] <= pos_q[:, None])[None, :, None, :]
+        else:
+            pos_b = torch.broadcast_to(decode_pos, (B,))
+            m = (pos_k[None, :] <= pos_b[:, None])[:, None, None, :]
+        p = _masked_softmax(s, m)
+        # attend over the latent, then lift the context per head
+        ctx = _contract("bqhs,bsl->bqhl", p.to(latent_k.dtype), latent_k)
+        return torch.einsum("bqhl,lhd->bqhd", ctx, w_uv)
+
+    if decode_pos is not None or S <= Q_CHUNK:
+        out = block(q_abs, q_rope, 0)
+    else:
+        assert S % Q_CHUNK == 0, (S, Q_CHUNK)
+        out = torch.cat(
+            [block(q_abs[:, c:c + Q_CHUNK], q_rope[:, c:c + Q_CHUNK], c) for c in range(0, S, Q_CHUNK)], dim=1
+        )
+
+    y = crossbar_linear(out.reshape(B, S, H * dh).to(x.dtype), params["wo"], name="wo")
+    return y, new_cache

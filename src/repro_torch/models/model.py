@@ -68,14 +68,12 @@ def _require_ported(kind: str) -> None:
 
 def _require_ported_config(cfg: ModelConfig) -> None:
     """Refuse what the blocks would otherwise run wrong or fail on: a stage
-    kind that is not ported (mamba), multi-head latent attention or a
-    non-token front end (a parameter tree carried across from the reference
-    never passes through ``init_model``, so every entry point checks)."""
+    kind that is not ported (mamba) or a non-token front end (a parameter
+    tree carried across from the reference never passes through
+    ``init_model``, so every entry point checks)."""
     for spec in cfg.stages:
         for kind in spec.kinds:
             _require_ported(kind)
-    if cfg.kv_lora_rank:
-        raise NotImplementedError(f"{cfg.name}: multi-head latent attention is not ported yet")
     if cfg.frontend != "token":
         raise NotImplementedError(f"{cfg.name}: front end {cfg.frontend!r} is not ported yet")
 
@@ -106,7 +104,8 @@ def _init_block(
     """One block position of a stage, its ``repeats`` layers stacked on a
     leading axis.  Matrices draw normal(0, fan_in**-0.5) except the xLSTM
     gate projection (0.02) and recurrent matrices (dh**-0.5), as in the
-    reference; norm scales are zero (``rms_norm`` multiplies by ``1 +
+    reference (MLA's ``w_uk`` / ``w_uv``, (kv_lora_rank, H, dh), at
+    kv_lora_rank**-0.5, the reference's leading-dim rule); norm scales are zero (``rms_norm`` multiplies by ``1 +
     scale``).  xLSTM blocks carry their own projections and have no FFN.  A
     post-norm config (gemma2) adds ``norm1_post`` after the mixer and
     ``norm2_post`` after the FFN.  ``use_moe`` makes the FFN an MoE FFN
@@ -131,8 +130,17 @@ def _init_block(
         for g in ("r_z", "r_i", "r_f", "r_o"):
             mixer[g] = _normal(gen, (L, h, xdh, xdh), xdh**-0.5, dtype, device)
         mixer["out_proj"] = mat(din, d)
+    elif cfg.kv_lora_rank:
+        lora, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
+        mixer = {
+            "wq": mat(d, h * (dh + rope)), "w_kv_down": mat(d, lora + rope),
+            "w_uk": _normal(gen, (L, lora, h, dh), lora**-0.5, dtype, device),
+            "w_uv": _normal(gen, (L, lora, h, dh), lora**-0.5, dtype, device),
+            "wo": mat(h * dh, d),
+        }
     else:
         mixer = {"wq": mat(d, h * dh), "wk": mat(d, kv * dh), "wv": mat(d, kv * dh), "wo": mat(h * dh, d)}
+
     def zeros() -> torch.Tensor:
         return torch.zeros((L, d), dtype=dtype, device=device)
 
@@ -187,7 +195,9 @@ def init_model(
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, device="cuda"):
     """Cache: list per stage of {b<i>: leaves stacked (repeats, ...)}:
-    attention {k, v} (repeats, B, S, KV, dh) in ``dtype``; xLSTM recurrent
+    attention {k, v} (repeats, B, S, KV, dh) in ``dtype`` (MLA {latent,
+    k_rope}: (repeats, B, S, kv_lora_rank) and (repeats, B, S,
+    qk_rope_dim)); xLSTM recurrent
     state in float32 (mLSTM {C, n}, sLSTM {c, n, h} with ``n`` at ones)."""
     _require_ported_config(cfg)
     device = require_device(device)
@@ -210,8 +220,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, dev
 def cache_axes(cfg: ModelConfig):
     """Logical-axis tree parallel to ``init_cache``: cache_batch, cache_seq
     (``serving.kvcache`` pages along it), kv_heads / heads.  Refuses what
-    ``init_cache`` refuses (multi-head latent attention, mamba, an
-    embedding front end)."""
+    ``init_cache`` refuses (mamba, an embedding front end)."""
     _require_ported_config(cfg)
 
     def block_axes(kind: str):
@@ -228,7 +237,10 @@ def cache_axes(cfg: ModelConfig):
                 "h": ("layers", "cache_batch", "heads", None),
             }
         if cfg.kv_lora_rank:
-            raise NotImplementedError("multi-head latent attention is not ported yet")
+            return {
+                "latent": ("layers", "cache_batch", "cache_seq", None),
+                "k_rope": ("layers", "cache_batch", "cache_seq", None),
+            }
         return {
             "k": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
             "v": ("layers", "cache_batch", "cache_seq", "kv_heads", None),

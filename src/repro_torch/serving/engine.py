@@ -1,6 +1,5 @@
 """Batched serving, split into a model runner and a slot scheduler
-(counterpart of ``repro.serving.engine``; mesh serving is not ported and its
-arguments are not accepted).
+(counterpart of ``repro.serving.engine``).
 
 ``ModelRunner`` owns the model half: the params, the programmed crossbar chip
 (program-once at construction, optionally under a ``core.planner.ChipPlan``
@@ -33,6 +32,30 @@ An MoE model may be served as one rank's share of an expert-parallel
 deployment (``share=``, a ``models.moe.ExpertShare``; its params hold that
 share's experts): every forward of the runner runs under it.
 
+Mesh serving (``mesh=``, a ``launch.mesh.Mesh`` inside a rank process of
+``launch.mesh.run_ranks``; the counterpart of the reference's ``mesh=``):
+every forward runs under ``use_mesh(mesh, layout_overrides(cfg))``, so each
+MoE FFN runs the reference's body for ``cfg.layout`` (EP, all-to-all or
+expert-TP) over the mesh's ranks.  The arguments say which form
+``params`` takes: beside ``restore_artifacts=`` this rank's copy
+(``moe.rank_params``), which the rank may load without the whole banks;
+otherwise the whole tree, of which the runner keeps this rank's copy.
+Programming under a mesh programs the whole chip from the whole tree and
+keeps this rank's slices (``device.programmed.local_artifact``); a restore
+or ``hot_swap`` reads only this rank's slices (``restore_programmed(mesh=)``),
+laid out by ``cfg.layout``.  Params of the other form are refused.  Every
+leaf outside the MoE FFNs — attention, dense FFNs, shared experts, the head
+— and its artifact stays whole on every rank, and every rank computes them
+whole, as the reference's ``ep_only`` layout replicates them: the port has
+no head-parallel attention.  Under a
+mesh nothing is captured: gloo's collectives are host calls, so the ticks
+and prefills run eagerly (``decode_graph`` stays None and
+``prefill_graphs`` empty).  Every rank samples alike (argmax at temperature
+<= 0, a generator seeded alike above it), so the ranks generate the same
+tokens; the engine adds no collective for that.  A chip's lifecycle past
+``age`` and ``hot_swap`` (``health_check``, ``compensate``, ``refresh``) and
+``save_artifacts`` are refused under a mesh.
+
 Generation is deterministic given (seed, admission order).  The decode tick
 returns host float32 logits — one device synchronisation per tick.
 """
@@ -59,6 +82,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import CrossbarMode, crossbar_mode
 from repro_torch.serving.graphs import DecodeGraph, PrefillBuffers, PrefillGraph
+from repro_torch.tree import flatten
 
 
 @dataclasses.dataclass
@@ -108,10 +132,21 @@ class ModelRunner:
         expert_chips=None,
         plan: Optional[ChipPlan] = None,
         share: Optional[moe_mod.ExpertShare] = None,
+        mesh=None,
         device="cuda",
     ):
         self.device = model_lib.require_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        whole = params
+        if mesh is not None:
+            if share is not None:
+                raise ValueError(
+                    f"an ExpertShare ({share}) and a mesh do not combine: the mesh's ranks hold the experts"
+                )
+            _require_bank_form(params, cfg, mesh, rank_copy=restore_artifacts is not None)
+            if restore_artifacts is None:
+                params = moe_mod.rank_params(params, cfg, mesh)
         self.params = params
         self.max_seq = max_seq
         self.temperature = temperature
@@ -126,7 +161,7 @@ class ModelRunner:
         # the chip-plan compiler's per-layer datapath / ADC choices, threaded
         # into program_model at deploy time
         self.plan = plan
-        self.crossbar = self._program_crossbars(crossbar, spare_cols, restore_artifacts)
+        self.crossbar = self._program_crossbars(crossbar, spare_cols, restore_artifacts, whole)
         if verify_coverage:
             self.verify_crossbar_coverage()
         self._decode_graph: Optional[DecodeGraph] = None
@@ -146,11 +181,13 @@ class ModelRunner:
         crossbar: Optional[CrossbarMode],
         spare_cols: Optional[int] = None,
         restore_artifacts: Optional[str] = None,
+        whole_params=None,
     ):
         """Program-once compilation of the model's weights (deploy time,
         under ``self.plan`` when one is given), or restore of a previously
         saved chip: the store is verified from its manifests first, then
         loaded bit-for-bit, and no ``program_layer`` call runs.
+        ``whole_params``: the tree a mesh runner programs from.
 
         ``spare_cols`` overrides the device's spare-column budget at deploy
         time (``device.repair`` then remaps the worst stuck-cell columns of
@@ -181,7 +218,7 @@ class ModelRunner:
                     "programmed — reprogram with the desired plan"
                 )
             expected = self._verify_store(restore_artifacts, None, "restore_artifacts=")
-            prog = restore_programmed(restore_artifacts, device=self.device)
+            prog = self._restore(restore_artifacts, None)
             # a stale or mismatched store would resolve no artifacts and
             # degrade every projection to per-call reprogramming: cross-check
             # the store against what this model would program
@@ -222,13 +259,15 @@ class ModelRunner:
                         "nothing to repair"
                     )
                 crossbar = dataclasses.replace(crossbar, device=device_cfg)
-        return dataclasses.replace(crossbar, programmed=self._program(crossbar))
+        return dataclasses.replace(crossbar, programmed=self._program(crossbar, whole_params))
 
-    def _program(self, crossbar: CrossbarMode):
+    def _program(self, crossbar: CrossbarMode, whole_params=None):
         """Program the runner's params under ``crossbar``'s device config and
-        the runner's plan (deploy time and ``refresh``)."""
-        return prog_mod.program_model(
-            self.params,
+        the runner's plan (deploy time and ``refresh``).  Under a mesh the
+        whole chip is programmed from ``whole_params`` and this rank's
+        slices are kept."""
+        prog = prog_mod.program_model(
+            self.params if self.mesh is None else whole_params,
             device_cfg=crossbar.device,
             fast=crossbar.fast,
             tie_lm_head=self._tie_lm_head,
@@ -236,6 +275,35 @@ class ModelRunner:
             plan=self.plan,
             device=self.device,
         )
+        if self.mesh is None:
+            return prog
+        specs = self._mesh_specs()
+
+        def local(node, path):
+            if isinstance(node, dict):
+                return {k: local(v, path + (k,)) for k, v in node.items()}
+            spec = specs.get("/".join(path))
+            return node if spec is None else prog_mod.local_artifact(node, spec, self.mesh.shape, self.mesh.coords)
+
+        return prog_mod.ProgrammedModel(local(prog.artifacts, ()))
+
+    def _mesh_specs(self) -> Dict[str, tuple]:
+        """{name: spec} of the leaves the mesh slices (every MoE FFN's router
+        and banks, under ``cfg.layout``)."""
+        return moe_mod.param_specs(self.params, self.cfg, self.mesh)
+
+    def _restore(self, directory: str, slot: Optional[str]):
+        """The store's chip on this runner's device: under a mesh, this
+        rank's slices laid out by ``cfg.layout``."""
+        if self.mesh is None:
+            return restore_programmed(directory, device=self.device, slot=slot)
+        return restore_programmed(directory, device=self.device, slot=slot, mesh=self.mesh, specs=self._mesh_specs())
+
+    def _require_one_device(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a mesh is not ported yet (ROADMAP, open items: the chip lifecycle under a mesh)"
+            )
 
     def _verify_store(self, directory: str, slot: Optional[str], what: str) -> Dict[str, tuple]:
         """Fail-fast static verification of a store before any array loads:
@@ -243,9 +311,20 @@ class ModelRunner:
         leaf shapes or a wrong name set is refused with the failing rule
         named.  Orphaned leaves (a store that is a superset of the model)
         are left to ``verify_crossbar_coverage``.  Returns the expected
-        name -> shape map for the binding cross-check."""
+        name -> shape map for the binding cross-check (under a mesh, this
+        rank's shapes; the store is checked against the whole model's)."""
         expected = prog_mod.expected_artifact_names(self.params, tie_lm_head=self._tie_lm_head)
-        report = verify_store(directory, expected=expected, slot=slot)
+        whole = expected
+        if self.mesh is not None:
+            # a rank's copy is taken as the spec's even split of the whole
+            sizes = self.mesh.shape
+            whole = dict(expected)
+            for name, spec in self._mesh_specs().items():
+                if name in whole:
+                    whole[name] = tuple(
+                        d if e is None else d * prog_mod._axes_size(e, sizes) for d, e in zip(whole[name], spec)
+                    )
+        report = verify_store(directory, expected=whole, slot=slot)
         fatal = [
             f for f in report.findings
             if not (f.rule == "name-set" and "orphaned leaf" in f.message)
@@ -288,6 +367,7 @@ class ModelRunner:
                 "no programmed artifacts to save: construct the engine with "
                 "crossbar=CrossbarMode(enabled=True, ...) first"
             )
+        self._require_one_device("save_artifacts() (a rank holds its slices only)")
         return save_programmed(directory, self.crossbar.programmed, slot=slot)
 
     @property
@@ -347,6 +427,7 @@ class ModelRunner:
         ``device.health.HealthReport`` (``flagged``: the layers over
         budget).  Does not touch the chips."""
         prog = self._require_programmed("health_check()")
+        self._require_one_device("health_check()")
         kw = {}
         if n_probes is not None:
             kw["n_probes"] = n_probes
@@ -358,6 +439,7 @@ class ModelRunner:
         """Refit the digital drift compensation (``comp_scale``) of every
         noisy chip and rebind: no reprogramming."""
         prog = self._require_programmed("compensate()")
+        self._require_one_device("compensate()")
         kw = {"n_probes": n_probes} if n_probes is not None else {}
         self._rebind(health_mod.compensate_model(prog, seed=seed, **kw))
 
@@ -366,10 +448,11 @@ class ModelRunner:
         verified first (``analysis.verify_store``, as a restore is), restored
         (the ``ACTIVE`` slot unless ``slot`` is forced) and cross-checked
         against this model's projections; a corrupt or mismatched store is
-        refused and the old chip keeps serving."""
+        refused and the old chip keeps serving.  Under a mesh the rank reads
+        its slices."""
         self._require_programmed("hot_swap()")
         expected = self._verify_store(directory, slot, "hot_swap")
-        prog = restore_programmed(directory, device=self.device, slot=slot)
+        prog = self._restore(directory, slot)
         bad = sorted(name for name, shape in expected.items() if prog.lookup(name, shape) is None)
         if bad:
             raise ValueError(
@@ -388,6 +471,7 @@ class ModelRunner:
         pointer is swapped and the runner hot-swaps from the store; returns
         the committed slot.  Without one the chip is rebound directly."""
         self._require_programmed("refresh()")
+        self._require_one_device("refresh()")
         prog = self._program(self.crossbar)
         if directory is None:
             self._rebind(prog)
@@ -400,11 +484,13 @@ class ModelRunner:
         return target
 
     def _with_crossbar(self, fn):
-        """Run ``fn`` under the runner's crossbar mode with the programmed
-        model's name-keyed artifact table bound, and as the runner's expert
-        share."""
+        """Run ``fn`` under the runner's mesh and crossbar mode with the
+        programmed model's name-keyed artifact table bound, and as the
+        runner's expert share."""
         with contextlib.ExitStack() as stack:
             stack.enter_context(moe_mod.expert_share(self.share))
+            if self.mesh is not None:
+                stack.enter_context(layers_mod.use_mesh(self.mesh, layers_mod.layout_overrides(self.cfg)))
             if self.crossbar is not None:
                 stack.enter_context(crossbar_mode(self.crossbar))
                 if self.crossbar.programmed is not None:
@@ -453,16 +539,18 @@ class ModelRunner:
 
         An attention model's prompt is prefilled by its bucket's
         ``PrefillGraph`` (captured at the bucket's first admission, on the
-        card); a recurrent model's runs eagerly at its exact length, on a
-        fresh one-slot cache."""
+        card); a recurrent model's runs eagerly at its exact length, and
+        under a mesh every prefill runs eagerly, each on a fresh one-slot
+        cache."""
         S = self.check_prompt(req.prompt, req.truncate)
         recurrent = self.cfg.family in ("ssm", "hybrid")
         length = self.prefill_len(S)
         prompt = np.zeros((1, length), np.int64)
         prompt[0, :S] = np.asarray(req.prompt)[:S]
-        if recurrent:
+        if recurrent or self.mesh is not None:
             # one graph per distinct prompt length would be one capture and
-            # one pool each: recurrent prefills stay eager
+            # one pool each: recurrent prefills stay eager; a mesh's
+            # collectives are host calls, which a graph cannot hold
             small_cache = self.init_cache(1)
             tokens = torch.from_numpy(prompt).to(self.device)
             logits, filled = self._with_crossbar(
@@ -489,7 +577,14 @@ class ModelRunner:
         ``(logits, cache)`` with logits as host float32.  The tick is the
         runner's ``DecodeGraph`` for this cache: captured on the first call
         (a CUDA graph on the card) and replayed after; a call with another
-        cache drops the graph and builds one for it."""
+        cache drops the graph and builds one for it.  Under a mesh each tick
+        runs eagerly."""
+        if self.mesh is not None:
+            inp = torch.from_numpy(np.stack([last_tok, pos]).astype(np.int64)).to(self.device)
+            logits, _ = self._with_crossbar(
+                lambda: model_lib.decode_step(self.params, self.cfg, inp[0].unsqueeze(1), inp[1], cache)
+            )
+            return logits.to(torch.float32).cpu().numpy(), cache
         graph = self._decode_graph
         if graph is None or not graph.serves(cache):
             self._decode_graph = None  # free the old graph's memory first
@@ -517,6 +612,24 @@ class ModelRunner:
         return np.argmax(logits / self.temperature + g, axis=-1).astype(np.int32)
 
 
+def _require_bank_form(params, cfg: ModelConfig, mesh, rank_copy: bool) -> None:
+    """Refuse ``params`` whose expert banks are not in the form a mesh
+    runner's arguments call for: the whole tree when it programs or serves
+    digitally (the runner takes this rank's copy of it), this rank's copy
+    (``moe.rank_params``) beside ``restore_artifacts=``."""
+    flat = flatten(params)
+    for name, spec in moe_mod.param_specs(params, cfg, mesh).items():
+        if name.endswith("/wi"):
+            split = 1 if spec[-3] is None else prog_mod._axes_size(spec[-3], mesh.shape)
+            want = cfg.moe_experts // split if rank_copy else cfg.moe_experts
+            if flat[name].shape[-3] != want:
+                raise ValueError(
+                    f"{name} holds {flat[name].shape[-3]} experts, not {want}: under a mesh, "
+                    + ("restore_artifacts= takes this rank's copy of params (moe.rank_params)" if rank_copy
+                       else "programming or digital serving takes the whole params tree")
+                )
+
+
 class ServingEngine:
     """Slot scheduler over a ``ModelRunner``: a fixed slot pool and a FIFO
     pending queue; ``step()`` admits and advances, ``run_until_done()``
@@ -538,6 +651,7 @@ class ServingEngine:
         plan: Optional[ChipPlan] = None,
         rid_start: int = 0,
         share: Optional[moe_mod.ExpertShare] = None,
+        mesh=None,
         device="cuda",
     ):
         self.runner = ModelRunner(
@@ -553,6 +667,7 @@ class ServingEngine:
             expert_chips=expert_chips,
             plan=plan,
             share=share,
+            mesh=mesh,
             device=device,
         )
         self.max_batch = max_batch
@@ -597,6 +712,10 @@ class ServingEngine:
     @property
     def share(self) -> Optional[moe_mod.ExpertShare]:
         return self.runner.share
+
+    @property
+    def mesh(self):
+        return self.runner.mesh
 
     @property
     def crossbar(self) -> Optional[CrossbarMode]:

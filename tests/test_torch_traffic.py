@@ -111,7 +111,7 @@ def test_request_fields_are_the_reference_fields_in_order():
     assert (r.deadline, r.arrival, r.finish, r.expired) == (None, 0, None, False)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "xlstm-350m", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "xlstm-350m", "gemma2-9b", "deepseek-v2-236b"])
 def test_cache_axes_equal_the_reference(arch):
     jcfg = jconfigs.reduced(jconfigs.get_config(arch))
     tcfg = reduced(get_config(arch))
@@ -123,15 +123,11 @@ def test_cache_axes_equal_the_reference(arch):
     assert all(len(axes[n]) == leaves[n].ndim for n in leaves)
 
 
-@pytest.mark.parametrize("kind", ["mla", "mamba"])
+@pytest.mark.parametrize("kind", ["mamba"])
 def test_cache_axes_refuse_what_init_cache_refuses(kind):
     tcfg = reduced(get_config("smollm-360m"))
-    if kind == "mla":
-        tcfg = dataclasses.replace(tcfg, kv_lora_rank=32)
-        match = "latent attention"
-    else:
-        tcfg = dataclasses.replace(tcfg, stages=(StageSpec(kinds=("mamba",), repeats=2),))
-        match = "mamba"
+    tcfg = dataclasses.replace(tcfg, stages=(StageSpec(kinds=("mamba",), repeats=2),))
+    match = "mamba"
     with pytest.raises(NotImplementedError, match=match):
         TM.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
