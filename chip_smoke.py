@@ -13,8 +13,8 @@ Phases (one JSON line each; any failure is an uncaught exception):
                kernels also at their tile edges, ragged N and K and extreme
                codes or cells (the fast one past its int32 fold too, and
                timed at every projection and head shape of the three dense
-               configs, of kimi-k2's rank share and of deepseek-v2's MoE FFN
-               and its rank slices; the paper and noisy ones
+               configs, of kimi-k2's rank share, of deepseek-v2's MoE FFN
+               and its rank slices and of jamba's share; the paper and noisy ones
                at K = 4096 and 14336), the
                scan at ragged dh, dh = 2048, 5 and 9 batch rows and one head,
                each scan case with the launch plan it ran
@@ -107,6 +107,28 @@ Phases (one JSON line each; any failure is an uncaught exception):
   moe_dispatch_card_vs_cpu  routing, slot tables and the combine from the
                same router logits (on a grid, with ties) on the card and the
                CPU: equal, at 4 and 256 tokens, with drops
+  serve_jamba  jamba-v0.1-52b as rank 0 of a 4-way expert-parallel
+               deployment (experts 0-3 of each MoE layer's 16, top 2, no
+               shared expert) at full width, its 8-layer period once (7 mamba
+               blocks, 1 attention block, 4 dense and 4 MoE FFNs), random bf16
+               weights, an ideal chip: 65 K1 launches a forward (attention,
+               FFNs, router, experts, head) asserted, each at a (K, N) the
+               kernels phase holds (the 28 mamba matmuls a forward stay
+               digital),
+               each prompt prefilled eagerly at its exact length with its
+               first token from the prefill, the tick captured with the mamba
+               state beside the attention cache; the logits' rel-L2 to the
+               plain-matmul model of the same share < 1 with the routing
+               agreement, and < JAMBA_FORCED_REL_L2_MAX to it routed as the
+               chip routed; the logits torch.equal to the same forward's with
+               K1's plain version in every launch; layer 0's mamba block card
+               vs CPU (float32, prefill
+               then 4 decode steps, JAMBA_MAMBA_CPU_GATE); a store round trip
+               on a copy cut to the period's first 4 positions; then
+               tick_profile_jamba, tick_mamba_jamba (the mamba blocks' decode
+               step replayed alone: no kernel of ours), tick_classes_jamba
+               (busy ms a tick: K1, the mamba blocks, the rest as a difference
+               of the two windows) and graph_vs_eager_jamba
   moe_ranks_deepseek  deepseek-v2's MoE FFN at published widths (160 experts
                top 6, 2 shared, d_model 5120, expert d_ff 1536; one layer,
                bf16 params, the router x5.59: the logit spread of the
@@ -306,6 +328,7 @@ from repro_torch.convert import tensor_to_numpy  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.moe import ExpertShare, expert_share  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
     CrossbarMode, crossbar_misses, crossbar_mode, layout_overrides, reset_crossbar_misses, use_mesh,
@@ -391,6 +414,9 @@ STORE_CHECK_LAYERS = 2
 # head replicated), at full width, cut to its dense layer and 2 MoE layers;
 # the store round trip on a copy cut to the dense layer and 1 MoE layer
 KIMI, KIMI_SHARE, KIMI_LAYERS, KIMI_STORE_LAYERS = "kimi-k2-1t-a32b", ExpertShare(rank=0, ranks=8), 3, 2
+# K1 launches a forward at KIMI_LAYERS: attention 4 a layer, the dense
+# layer's FFN 2, each MoE layer's router + 3 x (48 experts + 1 shared), the head
+KIMI_K1_PER_FORWARD = 311
 # the logits' rel-L2 to the plain-matmul model of the same share: a check
 # for a broken datapath (>= 1), printed, not a fidelity target
 KIMI_REL_L2_MAX = 1.0
@@ -527,6 +553,41 @@ DEEPSEEK_MLA_CPU_GATE = 1e-5
 # tick_profile_deepseek's split of busy time: K1, the MLA einsums (the
 # only float32 GEMMs of a chip's tick: cuBLAS), the rest
 DEEPSEEK_TICK_CLASSES = {"k1": ("fast_kernel",), "mla_einsums": ("gemm", "gemv", "splitK", "dot_kernel")}
+# serve_jamba: jamba-v0.1-52b as rank 0 of a 4-way expert-parallel
+# deployment (experts 0-3 of each MoE layer's 16; the rest replicated) at
+# full width, its 8-layer period once (repeats 4 -> 1: 7 mamba blocks, the
+# attention block, 4 dense and 4 MoE FFNs); the store round trip on a copy
+# cut to the period's first JAMBA_STORE_POSITIONS positions (3 mamba blocks,
+# the attention block, 2 MoE FFNs)
+JAMBA, JAMBA_SHARE, JAMBA_STORE_POSITIONS = "jamba-v0.1-52b", ExpertShare(rank=0, ranks=4), 4
+# K1 launches a forward: attention 4, dense FFNs 4 x 2, MoE FFNs 4 x (router
+# + 3 x 4 experts), the head; the mamba projections are digital
+JAMBA_K1_PER_FORWARD = 65
+# the logits' rel-L2 to the plain-matmul model of the same share: a check
+# for a broken datapath, as KIMI_REL_L2_MAX; printed with the routing
+# agreement, whose flips compound over the MoE layers
+JAMBA_REL_L2_MAX = 1.0
+# the logits' rel-L2 to the plain-matmul model of the same share routed as
+# the chip routed: the 16-bit datapath's own error.  Set before the first
+# run from rel_l2_cpu.py at full width (the period's first 1 / 2 / 4 / 8
+# positions of rank 0 of EP16, vocabulary 4096: 0.195 / 0.285 / 0.436 /
+# 0.665; EP4's 4 experts a layer read 1.16x EP16's at 2 positions): 0.77
+# predicted here
+JAMBA_FORCED_REL_L2_MAX = 0.9
+# layer 0's mamba block card against CPU, float32 (TF32 off), max |dy| / max
+# |y| and of the cache leaves over a 32-token prefill and 4 decode steps.
+# Set before the first run: float32 against float64 on the CPU reads <= 3.4e-6
+# over those steps, and card and CPU round apart independently
+JAMBA_MAMBA_CPU_GATE = 2e-5
+# jamba's K1 shapes (K x N) and the rows timed: q / o and k / v, the dense
+# fused wi, the dense wo (also an expert's wo), an expert's wi / wg, the
+# router at a tick (4) and a prefill (32); the experts also at their
+# capacity of 8 rows (every served size: 4 x 2 / 16 x 1.25 -> 8); the head
+# at a prefill's last position and a tick
+JAMBA_SHAPES = [
+    ((4096, 4096), (4, 32)), ((4096, 1024), (4, 32)), ((4096, 28672), (4, 32)),
+    ((14336, 4096), (4, 8, 32)), ((4096, 14336), (4, 8, 32)), ((4096, 16), (4, 32)), ((4096, 65536), (1, 4)),
+]
 # moe_expert_chips: one full-width MoE FFN of the rank share of EP48 (8
 # experts) on NOISY_DEVICE, one chip identity an expert, at these token
 # counts
@@ -912,6 +973,14 @@ def kernels_phase(dev, quick: bool):
                         kind, f"{tag}/{DEEPSEEK}", M, K, N, layer_scaled_spec(base, K), cfg,
                         sparse=False, skip=True, seed=6800 + len(cases), dev=dev, timed=True,
                     ))
+            # jamba-v0.1-52b's projections and head (seeds of their own)
+            for (K, N), rows in (JAMBA_SHAPES[:1] if quick else JAMBA_SHAPES):
+                for M in (rows[:1] if quick else rows):
+                    cases.append(run_case(
+                        kind, f"{tag}/{JAMBA}", M, K, N, layer_scaled_spec(base, K), cfg,
+                        sparse=False, skip=True, seed=6900 + len(cases), dev=dev, timed=True,
+                    ))
+                    torch.cuda.empty_cache()
             if not quick:
                 # the trained chip's loss (train_then_serve): every projection
                 # at the training batch's B x S rows, the tied head at one loss
@@ -1610,19 +1679,21 @@ def kimi_config(layers):
 
 
 def moe_vmm_calls(cfg, share):
-    """VMM launches one forward makes, from the config: 4 attention
-    projections a layer (q, k, v, o; MLA's 3: wq, w_kv_down, wo, its w_uk /
-    w_uv contractions being digital einsums, as in the reference); a dense
-    FFN's fused wi and its wo; an MoE FFN's router, wi / wg / wo of each
-    expert of the share and of the shared expert (a GLU FFN); and the untied
-    head."""
+    """VMM launches one forward makes, from the config, block position by
+    position: an attention mixer's 4 projections (q, k, v, o; MLA's 3: wq,
+    w_kv_down, wo, its w_uk / w_uv contractions being digital einsums, as in
+    the reference), a mamba mixer's none (its projections are digital, as
+    in the reference); a dense FFN's fused wi and its wo; an MoE FFN's
+    router, wi / wg / wo of each expert of the share and of the shared
+    expert (a GLU FFN); and the untied head."""
     ffn = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
     attn = 3 if cfg.kv_lora_rank else 4
     n = 0 if cfg.tie_embeddings else 1
     for spec in cfg.stages:
-        for moe in spec.moe:
+        for kind, moe in zip(spec.kinds, spec.moe):
+            mixer = attn if kind.startswith("attn") else 0
             per_ffn = (1 + ffn * (share.local_experts(cfg) + (1 if cfg.moe_shared_experts else 0))) if moe else 2
-            n += spec.repeats * (attn + per_ffn)
+            n += spec.repeats * (mixer + per_ffn)
     return n
 
 
@@ -1676,6 +1747,41 @@ def routed_reference_check(cfg, params, eng, dev, share):
     return rel, routing
 
 
+def forced_reference_check(cfg, params, eng, dev, share):
+    """The chip's logits on ``chip_logits``' prompt against (a) the
+    plain-matmul model of the same share routed as the chip routed (each MoE
+    layer handed the chip's top-k ids, gates and probabilities): rel-L2 and
+    max |d| / max |logit|, the 16-bit datapath's own error without routing
+    flips; and (b) the same forward with every K1 launch served by its plain
+    version (``k1_plain``), routed by its own logits: the same codes give the
+    same logits, at the rows a served prompt gives K1."""
+    routes, real = [], moe_mod.route_from_logits
+
+    def record(logits, cfg_, dtype):
+        routes.append(real(logits, cfg_, dtype))
+        return routes[-1]
+
+    moe_mod.route_from_logits = record
+    try:
+        with expert_share(share):
+            tok, xbar = chip_logits(cfg, params, eng, dev)
+            replay = iter(routes)
+            moe_mod.route_from_logits = lambda logits, cfg_, dtype: next(replay)
+            plain = model_lib.forward(params, cfg, tok).float()
+            require(next(replay, None) is None, "forced_reference_check: the plain model routed fewer times")
+            moe_mod.route_from_logits = real
+            with k1_plain():
+                emulated = chip_logits(cfg, params, eng, dev)[1]
+    finally:
+        moe_mod.route_from_logits = real
+    return dict(
+        moe_layers=len(routes), rel_l2_vs_plain_matmul=float((xbar - plain).norm() / plain.norm()),
+        max_abs_vs_plain_matmul=float((xbar - plain).abs().max() / plain.abs().max()),
+        k1_plain_equal=bool(torch.equal(xbar, emulated)),
+        k1_plain_max_abs=float((xbar - emulated).abs().max() / emulated.abs().max()),
+    )
+
+
 def serve_kimi(dev, seed, quick):
     """The rank-0 share of kimi-k2's 8-way expert-parallel deployment at
     full width and depth 3 (``KIMI_LAYERS``), from an ideal chip the engine
@@ -1698,9 +1804,10 @@ def serve_kimi(dev, seed, quick):
     want = moe_vmm_calls(cfg, KIMI_SHARE)
     forwards = line["prefills"] + line["decode_ticks"]
     require(
-        line["projections"] == want and launches["fast"] == want * forwards,
+        line["projections"] == want and launches["fast"] == want * forwards
+        and (quick or want == KIMI_K1_PER_FORWARD),
         f"serve_kimi: {launches['fast']} fast-kernel launches of {line['projections']} projections in "
-        f"{forwards} forwards, expected {want} x {forwards}",
+        f"{forwards} forwards, the config gives {want} a forward, expected {KIMI_K1_PER_FORWARD}",
     )
     lo = KIMI_SHARE.first_expert(cfg)
     line["logits_rel_l2_vs_plain_matmul"], line["routing_vs_plain_matmul"] = routed_reference_check(
@@ -1905,6 +2012,227 @@ def moe_dispatch_card_vs_cpu(dev, seed):
 # deepseek-v2's MoE FFN over rank processes
 # ---------------------------------------------------------------------------
 
+def jamba_config(positions=None):
+    """jamba-v0.1-52b at full width, its 8-layer period once (repeats 4 ->
+    1), or cut to the period's first ``positions`` positions."""
+    cfg = get_config(JAMBA)
+    (period,) = cfg.stages
+    p = positions or len(period.kinds)
+    return dataclasses.replace(
+        cfg, n_layers=p, stages=(StageSpec(kinds=period.kinds[:p], repeats=1, moe=period.moe[:p]),),
+    )
+
+
+def jamba_cut(tree, positions):
+    """``tree`` (params or an artifact tree) with the period's block
+    positions past ``positions`` taken out (the rest shared, no copies)."""
+    return {
+        k: ({b: v for b, v in sub.items() if int(b[1:]) < positions} if k == "stage0" else sub)
+        for k, sub in tree.items()
+    }
+
+
+def mamba_layers(params, cfg):
+    """The mamba mixers of the period, layer 0 of each (views)."""
+    kinds = cfg.stages[0].kinds
+    return [
+        {k: v[0] for k, v in params["stage0"][f"b{i}"]["mixer"].items()} for i, kind in enumerate(kinds)
+        if kind == "mamba"
+    ]
+
+
+def mamba_card_vs_cpu(params, cfg, dev, seed):
+    """Layer 0's mamba block at full width in float32 (the bf16 weights
+    widened), on the card and on the CPU: a 1 x 32 prompt into a zero
+    cache, then 4 decode steps; max |dy| / max |y| and of both cache leaves,
+    each step."""
+    mixer = {k: v.to(torch.float32) for k, v in mamba_layers(params, cfg)[0].items()}
+    cpu_mixer = {k: v.cpu() for k, v in mixer.items()}
+    gen = torch.Generator().manual_seed(seed)
+    steps = [torch.randn((1, 32, cfg.d_model), generator=gen)] + [
+        torch.randn((1, 1, cfg.d_model), generator=gen) for _ in range(4)
+    ]
+    caches = {d: ssm_mod.init_mamba_cache(cfg, 1, torch.float32, d) for d in (dev, "cpu")}
+    worst, readings = 0.0, []
+    for t, x in enumerate(steps):
+        ys = {}
+        for d, m in ((dev, mixer), ("cpu", cpu_mixer)):
+            ys[d], _ = ssm_mod.mamba_block(m, x.to(d), cfg, caches[d], decode=t > 0)
+        r = dict(step=t, y=rel_max(ys[dev].cpu().numpy(), ys["cpu"].numpy()), **{
+            n: rel_max(caches[dev][n].cpu().numpy(), caches["cpu"][n].numpy()) for n in ("h", "conv")
+        })
+        readings.append(r)
+        worst = max(worst, r["y"], r["h"], r["conv"])
+    return dict(worst=worst, gate=JAMBA_MAMBA_CPU_GATE, steps=readings)
+
+
+def mamba_tick_profile(params, cfg, dev, batch, seed, ticks):
+    """``tick_mamba_jamba``: one decode step of each of the period's mamba
+    blocks at ``batch`` rows (bf16 activations, the float32 state of a
+    served pool), captured as one CUDA graph and replayed ``ticks`` times in
+    a ``profile_window`` (the same kernels at the same shapes as inside the
+    replayed tick, where a graph replay does not say which block launched a
+    kernel); no kernel of ours may run in it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((batch, 1, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    blocks = [(m, ssm_mod.init_mamba_cache(cfg, batch, torch.float32, dev)) for m in mamba_layers(params, cfg)]
+
+    def tick():
+        for m, cache in blocks:
+            ssm_mod.mamba_block(m, x, cfg, cache, decode=True)
+
+    tick()  # warm-up: library handles and workspaces, before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tick()
+
+    def replays():
+        for _ in range(ticks):
+            graph.replay()
+
+    return retried_window("tick_mamba_jamba", lambda: profile_window("tick_mamba_jamba", replays, ticks, ours=False))
+
+
+def serve_jamba(dev, seed, quick):
+    """The rank-0 share of jamba-v0.1-52b's 4-way expert-parallel
+    deployment at full width, its 8-layer period once, from an ideal chip
+    the engine programs: every attention, FFN, router, expert and head
+    projection on the fast kernel (``JAMBA_K1_PER_FORWARD`` a forward,
+    asserted, each at a (K, N) of ``JAMBA_SHAPES``; the mamba projections
+    stay digital);
+    the logits within ``JAMBA_REL_L2_MAX`` of the plain-matmul model of the
+    same share with each MoE layer's routing agreement, and within
+    ``JAMBA_FORCED_REL_L2_MAX`` of it routed as the chip routed; the
+    logits ``torch.equal`` to those of the same forward with every K1 launch
+    served by its plain version (``forced_reference_check``); layer 0's mamba
+    block card against CPU (``JAMBA_MAMBA_CPU_GATE``); a store round trip
+    on a copy cut to the period's first ``JAMBA_STORE_POSITIONS`` positions
+    (a 4-D expert bank and mamba blocks); then ``tick_profile_jamba``,
+    ``mamba_tick_profile``, the busy time a tick by class
+    (``tick_classes_jamba``: K1, the mamba blocks, the rest) and
+    ``graph_vs_eager_jamba``.  Returns the serving
+    run's launch counts."""
+    t_phase = time.perf_counter()
+    cfg = jamba_config(JAMBA_STORE_POSITIONS if quick else None)
+    t0 = time.perf_counter()
+    params = model_lib.init_model(cfg, seed=seed, device=dev, share=JAMBA_SHARE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ideal = CrossbarMode(enabled=True, strict=True)
+    shapes = set()
+    with k1_shapes(shapes):
+        line, launches, eng = serve_phase(
+            "serve_jamba", cfg, params, ideal, "fast", dev, seed + 1, False, share=JAMBA_SHARE,
+        )
+    want = moe_vmm_calls(cfg, JAMBA_SHARE)
+    forwards = line["prefills"] + line["decode_ticks"]
+    require(
+        line["projections"] == want and launches["fast"] == want * forwards
+        and (quick or want == JAMBA_K1_PER_FORWARD),
+        f"serve_jamba: {launches['fast']} fast-kernel launches of {line['projections']} projections in "
+        f"{forwards} forwards, the config gives {want} a forward, expected {JAMBA_K1_PER_FORWARD}",
+    )
+    kn = {(k, n) for _, k, n in shapes}
+    require(kn <= {s for s, _ in JAMBA_SHAPES}, f"serve_jamba: K1 at shapes the kernels phase does not hold: {kn}")
+    lo = JAMBA_SHARE.first_expert(cfg)
+    line["logits_rel_l2_vs_plain_matmul"], line["routing_vs_plain_matmul"] = routed_reference_check(
+        cfg, params, eng, dev, JAMBA_SHARE,
+    )
+    line["routed_as_the_chip"] = forced_reference_check(cfg, params, eng, dev, JAMBA_SHARE)
+    line.update(
+        share=dict(rank=JAMBA_SHARE.rank, ranks=JAMBA_SHARE.ranks, experts=[lo, lo + JAMBA_SHARE.local_experts(cfg) - 1],
+                   of=cfg.moe_experts, top_k=cfg.moe_top_k, capacity_at_decode=moe_mod._capacity(4, cfg, 4)),
+        period=list(cfg.stages[0].kinds), moe=list(cfg.stages[0].moe),
+        reduced=[f"depth {get_config(JAMBA).n_layers} -> {cfg.n_layers} (one period)",
+                 f"experts {cfg.moe_experts} -> {JAMBA_SHARE.local_experts(cfg)} (rank 0 of EP{JAMBA_SHARE.ranks})"],
+        widths=dict(d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                    d_ff=cfg.d_ff, expert_d_ff=cfg.moe_d_ff, shared_experts=cfg.moe_shared_experts,
+                    d_inner=ssm_mod.d_inner_of(cfg), d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+                    dt_rank=ssm_mod.dt_rank_of(cfg), vocab=cfg.vocab_size),
+        k1_launches_per_forward=want,
+        k1_reckoning="attention 4; dense FFNs 4 x 2; MoE FFNs 4 x (router + 3 x 4 experts); head 1; mamba 0",
+        k1_shapes_mkn=sorted(shapes), digital_mamba_matmuls_per_forward=4 * len(mamba_layers(params, cfg)),
+        rel_l2_gate=JAMBA_REL_L2_MAX, forced_rel_l2_gate=JAMBA_FORCED_REL_L2_MAX, init_seconds=init_s,
+        param_gb=param_gb,
+        chip_gb=sum(
+            getattr(a, f).numel() * getattr(a, f).element_size()
+            for a in eng.programmed.by_name.values() for f in tprog.ARTIFACT_ARRAY_FIELDS
+            if getattr(a, f) is not None
+        ) / 1e9,
+        mamba_card_vs_cpu=mamba_card_vs_cpu(params, cfg, dev, seed + 7),
+    )
+    require(
+        line["logits_rel_l2_vs_plain_matmul"] < JAMBA_REL_L2_MAX,
+        f"serve_jamba: the chip is {line['logits_rel_l2_vs_plain_matmul']} (rel-L2) away from the plain "
+        f"matmul model, gate {JAMBA_REL_L2_MAX}",
+    )
+    forced = line["routed_as_the_chip"]
+    require(
+        forced["rel_l2_vs_plain_matmul"] < JAMBA_FORCED_REL_L2_MAX and forced["k1_plain_equal"],
+        f"serve_jamba: routed as the chip routed, the chip is {forced['rel_l2_vs_plain_matmul']} (rel-L2) away "
+        f"from the plain-matmul model, gate {JAMBA_FORCED_REL_L2_MAX}; K1's plain version gives the same logits: "
+        f"{forced['k1_plain_equal']}",
+    )
+    require(
+        line["mamba_card_vs_cpu"]["worst"] <= JAMBA_MAMBA_CPU_GATE,
+        f"serve_jamba: the mamba block card vs CPU {line['mamba_card_vs_cpu']}",
+    )
+    # the store round trip on the period's first positions: mamba blocks,
+    # the attention block and two MoE FFNs (4-D expert banks)
+    positions = min(JAMBA_STORE_POSITIONS, cfg.n_layers)
+    cut_cfg = jamba_config(positions)
+    cut_params = jamba_cut(params, positions)
+    cut_chip = tprog.ProgrammedModel(jamba_cut(eng.programmed.artifacts, positions))
+    require(
+        cut_chip.by_name["stage0/b1/ffn/wi"].w_codes.ndim == 4 and "mamba" in cut_cfg.stages[0].kinds,
+        "serve_jamba: the cut chip has no expert bank or no mamba block",
+    )
+    cut_eng = ServingEngine(
+        cut_cfg, cut_params, max_batch=4, max_seq=256, device=dev, share=JAMBA_SHARE,
+        crossbar=dataclasses.replace(ideal, programmed=cut_chip),
+    )
+    prompts = make_requests(cfg, seed + 1)
+    cut_tokens = [r.generated for r in drive(cut_eng, prompts, max_new=16)[0]]
+    line["store_round_trip"] = dict(
+        positions=list(cut_cfg.stages[0].kinds), width="full",
+        expert_bank_shape=list(cut_chip.by_name["stage0/b1/ffn/wi"].shape),
+        why="a copy of the served chip cut to the period's first positions",
+        **store_round_trip("serve_jamba", cut_cfg, cut_params, cut_eng, prompts, cut_tokens, dev),
+    )
+    del cut_eng, cut_chip, cut_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["peak_mem_gb_with_store_round_trip"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(line)
+    # where a tick goes: K1 by name in the replayed ticks, the mamba blocks
+    # in a window of their own, the rest the difference of the two windows;
+    # then replay against eager
+    prof = tick_profile("tick_profile_jamba", eng, make_requests(cfg, seed + 3), classes={"k1": ("fast_kernel",)})
+    require(
+        {k["name"]: k["calls_per_tick"] for k in prof["kernels"]} == {"fast_kernel": want},
+        f"tick_profile_jamba: kernels a tick {prof['kernels']}",
+    )
+    mamba = mamba_tick_profile(params, cfg, dev, eng.max_batch, seed + 8, prof["ticks"])
+    busy, k1, mamba_ms = prof["device_busy_ms_per_tick"], prof["busy_ms_per_tick_by_class"]["k1"], mamba["device_busy_ms_per_tick"]
+    emit(dict(
+        phase="tick_classes_jamba", busy_ms_per_tick=busy,
+        busy_ms_per_tick_by_class=dict(k1=k1, mamba_blocks=mamba_ms, rest_two_windows=busy - k1 - mamba_ms),
+        launches_per_tick=prof["device_launches_per_tick"], mamba_launches_per_tick=mamba["device_launches_per_tick"],
+        how="k1: the profiled replayed ticks by kernel name (tick_profile_jamba); mamba_blocks: one decode step of "
+            "each mamba block at the pool's rows, replayed from a graph of its own (tick_mamba_jamba); "
+            "rest_two_windows: the first window's busy time less both, a difference of two windows",
+    ))
+    graph_vs_eager("jamba", eng, make_requests(cfg, seed + 6))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="serve_jamba_done", seconds=time.perf_counter() - t_phase))
+    return launches
+
+
 def deepseek_config(layout, dispatch="allreduce"):
     """deepseek-v2 under ``layout``, capacity factor E / k: every expert has
     a slot for every token, so no run drops an assignment.  The all-to-all
@@ -1969,6 +2297,27 @@ def k1_shapes(shapes: set):
     tprog.crossbar_vmm_cuda = spy
     try:
         yield shapes
+    finally:
+        tprog.crossbar_vmm_cuda = real
+
+
+@contextlib.contextmanager
+def k1_plain():
+    """Every K1 launch in the block served by K1's plain version instead, in
+    column blocks of ``PLAIN_N_CHUNK`` (no launch counted)."""
+    real = tprog.crossbar_vmm_cuda
+
+    def plain(xq, w_codes, spec, adc_cfg=None, fast=True, skip_zero_planes=True):
+        x2 = xq.reshape(-1, xq.shape[-1])
+        y = torch.cat([
+            crossbar_vmm_plain(x2, w_codes[:, n0:n0 + PLAIN_N_CHUNK], spec, adc_cfg, fast=fast)
+            for n0 in range(0, w_codes.shape[-1], PLAIN_N_CHUNK)
+        ], dim=-1)
+        return y.reshape(*xq.shape[:-1], y.shape[-1])
+
+    tprog.crossbar_vmm_cuda = plain
+    try:
+        yield
     finally:
         tprog.crossbar_vmm_cuda = real
 
@@ -2861,26 +3210,34 @@ def tick_profile(phase, eng, prompts, ticks=3, classes=None):
     """Where one decode tick goes: ``ticks`` steady decode ticks of a full
     slot pool (graph replays) in one ``profile_window`` (``classes`` as
     there).  Where the profiler dropped records of the window, the pool is
-    drained and filled anew, up to ``PROFILE_RUNS`` windows in all."""
+    drained and filled anew (``retried_window``)."""
     def steps():
         for _ in range(ticks):
             eng.step()
 
-    dropped = []
-    while True:
+    def window():
         for p in prompts[:4]:
             eng.submit(p, max_new_tokens=ticks + 8)
         for _ in range(3):  # admission and warm ticks
             eng.step()
         try:
-            line = profile_window(phase, steps, ticks, classes)
+            return profile_window(phase, steps, ticks, classes)
+        finally:
+            eng.run_until_done()
+
+    return retried_window(phase, window)
+
+
+def retried_window(phase, window):
+    """``window()`` (a ``profile_window``) taken anew where the profiler
+    dropped records of it, up to ``PROFILE_RUNS`` windows in all."""
+    dropped = []
+    while True:
+        try:
+            return window()
         except RecordsDropped as e:
             dropped.append(e.short)
             require(len(dropped) < PROFILE_RUNS, f"{phase}: the profiler dropped records in {len(dropped)} windows: {dropped}")
-            continue
-        finally:
-            eng.run_until_done()
-        return line
 
 
 class RecordsDropped(RuntimeError):
@@ -2932,7 +3289,7 @@ def device_entries(prof):
     return kernels, prologue_seen
 
 
-def profile_window(phase, run, ticks, classes=None):
+def profile_window(phase, run, ticks, classes=None, ours=True):
     """``run()`` (``ticks`` steps of a serve loop; it may return a dict of
     fields for the line) under ``torch.profiler``
     (CPU + CUDA activities).  Device busy time is the sum of the kernels' own
@@ -2952,7 +3309,8 @@ def profile_window(phase, run, ticks, classes=None):
     disagreement fails.  ``classes``
     ({class: names}, in order) splits the busy time a tick by kernel name:
     a kernel goes to the first class one of whose names its name holds,
-    else to "rest"."""
+    else to "rest".  ``ours=False``: a window that must credit no launch of
+    our kernels and no planned call (a digital block's)."""
     counters = lambda: (dict(kvmm.LAUNCHES, **kscan.LAUNCHES), dict(tprog.PLANNED_CALLS))
     torch.cuda.synchronize()
     before = counters()
@@ -2999,7 +3357,11 @@ def profile_window(phase, run, ticks, classes=None):
         emit(dict(line, phase=f"{phase}_dropped"))
         raise RecordsDropped(phase, short)
     emit(line)
-    require(line["kernels"] or planned, f"{phase}: no kernel launch or planned call was credited in the window")
+    require(
+        bool(line["kernels"] or planned) == ours,
+        f"{phase}: kernels of ours {line['kernels']} and planned calls {planned} in the window, expected "
+        f"{'some' if ours else 'none'}",
+    )
     for k in line["kernels"]:
         require(
             k["calls_per_tick"] == k["credited_per_tick"],
@@ -4720,6 +5082,9 @@ def main() -> int:
     by_path["serve_kimi"] = serve_kimi(dev, args.seed + 50, args.quick)
     by_path["moe_expert_chips"] = moe_expert_chips(dev, args.seed + 51)
     moe_dispatch_card_vs_cpu(dev, args.seed + 52)
+    # jamba's rank-0 share of EP4 at full width, one period: mamba blocks
+    # beside attention and an MoE FFN with no shared expert
+    by_path["serve_jamba"] = serve_jamba(dev, args.seed + 55, args.quick)
     # deepseek-v2's MoE FFN at published widths over 4 rank processes
     by_path["moe_ranks_deepseek"] = moe_ranks_deepseek(dev, args.seed + 53)
     # deepseek-v2 served whole at depth 2 on one device, then over 4 rank

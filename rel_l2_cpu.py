@@ -10,7 +10,16 @@ For each depth it builds the config cut to that many layers (whole repeats of
 its block pattern) and, if ``--vocab`` is given, to that vocabulary; draws
 random weights from ``--seed``; programs an ideal chip; and prints the rel-L2
 of the chip's logits against the plain-matmul model's on one 16-token prompt
-(the measure ``chip_smoke.py`` gates).  The fast kernel's function is exact
+(the measure ``chip_smoke.py`` gates).  For a model with MoE layers it also
+prints ``forced_rel_l2``: the chip's logits against the plain-matmul model
+routed as the chip routed (each MoE layer handed the chip's top-k ids, gates
+and probabilities), the 16-bit datapath's error without routing flips.  A
+hybrid's period is cut with ``--positions`` (its first P block positions,
+once) and an MoE to one rank's experts with ``--share R/N``, e.g.::
+
+    python3 rel_l2_cpu.py jamba-v0.1-52b --positions 2 4 --share 0/16 --vocab 4096
+
+The fast kernel's function is exact
 integer arithmetic, so its plain version is swapped for one float64 matmul of
 the codes (exact below 2**53), requantized as the kernel does: the same
 codes, in seconds instead of hours.  Memory: about 12 GB at gemma2-9b's width
@@ -32,6 +41,8 @@ from repro_torch.configs import StageSpec, get_config  # noqa: E402
 from repro_torch.device import programmed as tprog  # noqa: E402
 from repro_torch.kernels import crossbar_vmm as kvmm  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.moe import ExpertShare  # noqa: E402
 from repro_torch.models.layers import CrossbarMode, crossbar_mode  # noqa: E402
 
 
@@ -44,33 +55,71 @@ def exact_fast_vmm(x_codes, w_codes, spec, adc_cfg=None, fast=True):
     return torch.clamp((acc + (1 << (spec.drop_lsb - 1))) >> spec.drop_lsb, lo, hi).to(torch.int32)
 
 
-def rel_l2(arch: str, layers: int, vocab: int, seed: int) -> float:
+def cut_config(arch: str, layers: int, positions: int, vocab: int):
+    """``arch`` cut to ``layers`` (whole repeats of its block pattern) or, if
+    ``positions``, to its pattern's first ``positions`` blocks once."""
     cfg = get_config(arch)
     spec = cfg.stages[0]
-    cfg = dataclasses.replace(
-        cfg, n_layers=layers, vocab_size=vocab or cfg.vocab_size,
-        stages=(StageSpec(kinds=spec.kinds, repeats=layers // len(spec.kinds)),),
+    if positions:
+        stage = StageSpec(kinds=spec.kinds[:positions], repeats=1, moe=spec.moe[:positions])
+    else:
+        stage = StageSpec(kinds=spec.kinds, repeats=layers // len(spec.kinds), moe=spec.moe)
+    return dataclasses.replace(
+        cfg, n_layers=stage.n_layers, vocab_size=vocab or cfg.vocab_size, stages=(stage,),
     )
-    params = model_lib.init_model(cfg, seed=seed, device="cpu")
+
+
+def rel_l2(cfg, share: ExpertShare, seed: int) -> dict:
+    """The chip's logits against the plain-matmul model's: ``rel_l2`` and,
+    where the model routes, ``forced_rel_l2``."""
+    params = model_lib.init_model(cfg, seed=seed, device="cpu", share=share)
     chip = tprog.program_model(params, tie_lm_head=cfg.tie_embeddings, device="cpu")
     tok = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, size=(1, 16)))
-    with crossbar_mode(CrossbarMode(enabled=True, strict=True, programmed=chip)), chip.bind():
-        xbar = model_lib.forward(params, cfg, tok).float()
-    digital = model_lib.forward(params, cfg, tok).float()
-    return float((xbar - digital).norm() / digital.norm())
+    routes, real = [], moe_mod.route_from_logits
+
+    def record(logits, cfg_, dtype):
+        routes.append(real(logits, cfg_, dtype))
+        return routes[-1]
+
+    out = {}
+    moe_mod.route_from_logits = record
+    try:
+        with moe_mod.expert_share(share):
+            with crossbar_mode(CrossbarMode(enabled=True, strict=True, programmed=chip)), chip.bind():
+                xbar = model_lib.forward(params, cfg, tok).float()
+            moe_mod.route_from_logits = real
+            digital = model_lib.forward(params, cfg, tok).float()
+            out["rel_l2"] = float((xbar - digital).norm() / digital.norm())
+            if routes:
+                replay = iter(routes)
+                moe_mod.route_from_logits = lambda logits, cfg_, dtype: next(replay)
+                forced = model_lib.forward(params, cfg, tok).float()
+                assert next(replay, None) is None, "the plain forward routed fewer times than the chip's"
+                out["forced_rel_l2"] = float((xbar - forced).norm() / forced.norm())
+    finally:
+        moe_mod.route_from_logits = real
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("arch")
     ap.add_argument("--layers", type=int, nargs="+", default=[2])
+    ap.add_argument("--positions", type=int, nargs="+", default=None,
+                    help="cut the block pattern to its first P positions, once (in place of --layers)")
+    ap.add_argument("--share", default="0/1", help="R/N: rank R's experts of an N-way expert-parallel deployment")
     ap.add_argument("--vocab", type=int, default=0, help="cut the vocabulary (0: the config's)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     kvmm.crossbar_vmm_plain = exact_fast_vmm  # the CPU wrapper's plain version
-    for layers in args.layers:
-        print(f"{args.arch} layers={layers} vocab={args.vocab or 'full'} "
-              f"rel_l2={rel_l2(args.arch, layers, args.vocab, args.seed):.4f}", flush=True)
+    rank, ranks = (int(v) for v in args.share.split("/"))
+    share = ExpertShare(rank=rank, ranks=ranks)
+    cuts = [(0, p) for p in args.positions] if args.positions else [(n, 0) for n in args.layers]
+    for layers, positions in cuts:
+        cfg = cut_config(args.arch, layers, positions, args.vocab)
+        readings = " ".join(f"{k}={v:.4f}" for k, v in rel_l2(cfg, share, args.seed).items())
+        print(f"{args.arch} layers={cfg.n_layers} kinds={','.join(cfg.stages[0].kinds)} share={args.share} "
+              f"vocab={args.vocab or 'full'} {readings}", flush=True)
     return 0
 
 

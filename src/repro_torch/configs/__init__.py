@@ -16,9 +16,10 @@ from repro_torch.configs import minitron_4b  # noqa: F401
 from repro_torch.configs import starcoder2_3b  # noqa: F401
 from repro_torch.configs import kimi_k2_1t  # noqa: F401
 from repro_torch.configs import deepseek_v2_236b  # noqa: F401
+from repro_torch.configs import jamba_52b  # noqa: F401
 
 # the architectures served whole
 ALL_ARCHS = [
     "xlstm-350m", "smollm-360m", "gemma2-9b", "minitron-4b", "starcoder2-3b", "kimi-k2-1t-a32b",
-    "deepseek-v2-236b",
+    "deepseek-v2-236b", "jamba-v0.1-52b",
 ]

@@ -1,6 +1,6 @@
 """Model assembly: embed -> stages (loop over stacked layers) -> norm ->
-logits (counterpart of ``repro.models.model`` for attention and xLSTM
-stages, with dense or MoE FFNs).
+logits (counterpart of ``repro.models.model`` for attention, mamba and
+xLSTM stages, with dense or MoE FFNs).
 
 Entry points:
   * ``init_model(cfg, seed, device, dtype, share)`` -> params (nested dicts)
@@ -34,6 +34,7 @@ from repro_torch.configs.base import ModelConfig, StageSpec
 from repro_torch.device.programmed import _push_bind_map, name_scope
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import current_crossbar, embed, lm_head, mlp, rms_norm
 
@@ -59,21 +60,21 @@ def _stage_layer_maps(si: int):
 _XLSTM_KINDS = ("mlstm", "slstm")
 
 
-def _require_ported(kind: str) -> None:
-    if not (kind.startswith("attn") or kind in _XLSTM_KINDS):
-        raise NotImplementedError(
-            f"stage kind {kind!r} is not ported yet (attention and xLSTM stages only)"
-        )
+def _check_kind(kind: str) -> None:
+    """Refuse a stage kind that is no block of the model (the reference's
+    ``_init_block`` raises ``ValueError`` for it)."""
+    if not (kind.startswith("attn") or kind in _XLSTM_KINDS or kind == "mamba"):
+        raise ValueError(f"unknown stage kind {kind!r}")
 
 
 def _require_ported_config(cfg: ModelConfig) -> None:
-    """Refuse what the blocks would otherwise run wrong or fail on: a stage
-    kind that is not ported (mamba) or a non-token front end (a parameter
-    tree carried across from the reference never passes through
-    ``init_model``, so every entry point checks)."""
+    """Refuse what the blocks would otherwise run wrong or fail on: an
+    unknown stage kind or a non-token front end (a parameter tree carried
+    across from the reference never passes through ``init_model``, so every
+    entry point checks)."""
     for spec in cfg.stages:
         for kind in spec.kinds:
-            _require_ported(kind)
+            _check_kind(kind)
     if cfg.frontend != "token":
         raise NotImplementedError(f"{cfg.name}: front end {cfg.frontend!r} is not ported yet")
 
@@ -105,12 +106,13 @@ def _init_block(
     leading axis.  Matrices draw normal(0, fan_in**-0.5) except the xLSTM
     gate projection (0.02) and recurrent matrices (dh**-0.5), as in the
     reference (MLA's ``w_uk`` / ``w_uv``, (kv_lora_rank, H, dh), at
-    kv_lora_rank**-0.5, the reference's leading-dim rule); norm scales are zero (``rms_norm`` multiplies by ``1 +
-    scale``).  xLSTM blocks carry their own projections and have no FFN.  A
+    kv_lora_rank**-0.5, the reference's leading-dim rule; mamba's leaves as
+    ``ssm.init_mamba`` draws them); norm scales are zero (``rms_norm``
+    multiplies by ``1 + scale``).  xLSTM blocks carry their own projections
+    and have no FFN; a mamba block has one.  A
     post-norm config (gemma2) adds ``norm1_post`` after the mixer and
     ``norm2_post`` after the FFN.  ``use_moe`` makes the FFN an MoE FFN
     (``moe.init_moe``: the experts of ``share``)."""
-    _require_ported(kind)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L = repeats
 
@@ -130,6 +132,10 @@ def _init_block(
         for g in ("r_z", "r_i", "r_f", "r_o"):
             mixer[g] = _normal(gen, (L, h, xdh, xdh), xdh**-0.5, dtype, device)
         mixer["out_proj"] = mat(din, d)
+    elif kind == "mamba":
+        mixer = ssm_mod.init_mamba(
+            cfg, L, lambda shape, scale: _normal(gen, shape, scale, dtype, device), dtype, device
+        )
     elif cfg.kv_lora_rank:
         lora, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
         mixer = {
@@ -198,16 +204,19 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, dev
     attention {k, v} (repeats, B, S, KV, dh) in ``dtype`` (MLA {latent,
     k_rope}: (repeats, B, S, kv_lora_rank) and (repeats, B, S,
     qk_rope_dim)); xLSTM recurrent
-    state in float32 (mLSTM {C, n}, sLSTM {c, n, h} with ``n`` at ones)."""
+    state in float32 (mLSTM {C, n}, sLSTM {c, n, h} with ``n`` at ones);
+    mamba {h (repeats, B, d_inner, d_state) float32, conv (repeats, B,
+    d_conv - 1, d_inner) in ``dtype``}."""
     _require_ported_config(cfg)
     device = require_device(device)
     stages = []
     for spec in cfg.stages:
         entry = {}
         for i, kind in enumerate(spec.kinds):
-            _require_ported(kind)
             if kind in _XLSTM_KINDS:
                 one = xlstm_mod.init_xlstm_cache(cfg, kind, batch, device)
+            elif kind == "mamba":
+                one = ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
             else:
                 one = attn_mod.init_attention_cache(cfg, batch, seq, dtype, device)
             entry[f"b{i}"] = {
@@ -219,12 +228,16 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, dev
 
 def cache_axes(cfg: ModelConfig):
     """Logical-axis tree parallel to ``init_cache``: cache_batch, cache_seq
-    (``serving.kvcache`` pages along it), kv_heads / heads.  Refuses what
-    ``init_cache`` refuses (mamba, an embedding front end)."""
+    (``serving.kvcache`` pages along it), kv_heads / heads / d_inner.
+    Refuses what ``init_cache`` refuses (an embedding front end)."""
     _require_ported_config(cfg)
 
     def block_axes(kind: str):
-        _require_ported(kind)
+        if kind == "mamba":
+            return {
+                "h": ("layers", "cache_batch", "d_inner", None),
+                "conv": ("layers", "cache_batch", None, "d_inner"),
+            }
         if kind == "mlstm":
             return {
                 "C": ("layers", "cache_batch", "heads", None, None),
@@ -280,6 +293,10 @@ def _apply_block(
             h, new_entry = xlstm_mod.slstm_block(
                 params["mixer"], h, cfg, cache_entry, decode=decode_pos is not None
             )
+        elif kind == "mamba":
+            h, new_entry = ssm_mod.mamba_block(
+                params["mixer"], h, cfg, cache_entry, decode=decode_pos is not None
+            )
         else:
             h, new_entry = attn_mod.attention_block(
                 params["mixer"], h, cfg, kind, positions, cache_entry, decode_pos
@@ -317,8 +334,6 @@ def _run_stage(
     through per-layer views.  ``remat`` (training, no cache): each layer is
     recomputed in backward and saves only its input, the counterpart of the
     reference's ``jax.checkpoint(body, policy=nothing_saveable)``."""
-    for kind in spec.kinds:
-        _require_ported(kind)
     layers = _unbind_layers(params_stage, spec.repeats)
     caches = _unbind_layers(cache_stage, spec.repeats) if cache_stage is not None else [None] * spec.repeats
     share = moe_mod.current_expert_share()

@@ -14,8 +14,10 @@ the *budget* and the *paged-out copies*):
     ``ceil(tokens / block_size)`` blocks and extends one block at a time as
     decode crosses a block boundary;
   * recurrent state leaves (no sequence axis: xLSTM ``C`` / ``n`` / ``c`` /
-    ``h``) are single-block caches — their size does not grow with generated
-    tokens, so one block covers the whole request regardless of length;
+    ``h``, mamba ``h`` / ``conv``) are single-block caches — their size does
+    not grow with generated tokens, so one block covers the whole request
+    regardless of length; in a hybrid (jamba) they page whole beside the
+    attention leaves, which page block by block;
   * ``page_out`` / ``page_in``: exact preemption and resume.  Page-out
     copies the victim's cache prefix into block-size host chunks, frees its
     pool blocks and surrenders the slot; page-in re-allocates blocks and

@@ -38,16 +38,28 @@ def fresh_engine(eng):
 
 
 def spy_ticks(eng):
-    """Record the active slots' logits at every decode tick."""
-    ticks = []
-    real = eng.runner.sample
+    """Record the active slots' logits at every decode tick and, for a
+    recurrent model, the logits of every prefill, which sample its first
+    token (told apart by the call: a sample inside ``admit_slot``)."""
+    ticks, admitting = [], []
+    real_sample, real_admit = eng.runner.sample, eng.runner.admit_slot
+
+    def admit_slot(*args, **kwargs):
+        admitting.append(True)
+        try:
+            return real_admit(*args, **kwargs)
+        finally:
+            admitting.pop()
 
     def sample(logits):
-        active = [i for i, s in enumerate(eng.slots) if s is not None]
-        ticks.append(np.array(logits[active]))
-        return real(logits)
+        if admitting:
+            ticks.append(np.array(logits))
+        else:
+            active = [i for i, s in enumerate(eng.slots) if s is not None]
+            ticks.append(np.array(logits[active]))
+        return real_sample(logits)
 
-    eng.runner.sample = sample
+    eng.runner.admit_slot, eng.runner.sample = admit_slot, sample
     return ticks
 
 

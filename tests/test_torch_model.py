@@ -49,7 +49,7 @@ def test_configs_are_the_same(tiny):
     assert (full_t.n_layers, full_t.d_model, full_t.n_heads, full_t.n_kv_heads, full_t.head_dim,
             full_t.d_ff, full_t.vocab_size) == (32, 960, 15, 5, 64, 2560, 49152)
     with pytest.raises(KeyError):
-        get_config("jamba-v0.1-52b")  # not registered in the port yet
+        get_config("musicgen-large")  # not registered in the port yet
 
 
 def test_params_carry_over_names_and_values(tiny):
@@ -330,8 +330,8 @@ def test_tied_head_is_shape_checked_and_non_attention_stages_raise(tiny):
     import dataclasses
     from repro_torch.configs import StageSpec
 
-    mamba = dataclasses.replace(tcfg, stages=(StageSpec(kinds=("mamba",), repeats=2),))
-    with pytest.raises(NotImplementedError, match="mamba"):
-        TM.init_model(mamba, device="cpu")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        TM.forward(tparams, mamba, torch.zeros((1, 2), dtype=torch.long))
+    unknown = dataclasses.replace(tcfg, stages=(StageSpec(kinds=("rwkv",), repeats=2),))
+    with pytest.raises(ValueError, match="rwkv"):
+        TM.init_model(unknown, device="cpu")
+    with pytest.raises(ValueError, match="rwkv"):
+        TM.forward(tparams, unknown, torch.zeros((1, 2), dtype=torch.long))

@@ -1,6 +1,5 @@
 """PyTorch port: the model's entry points refuse configs whose blocks are not
-ported (mamba stages, an embedding front end)
-instead of running them wrong, and the training path refuses sLSTM stages.  Each config is the JAX package's reduced
+ported (an embedding front end) instead of running them wrong, and the training path refuses sLSTM stages.  Each config is the JAX package's reduced
 config carried into the port's config class, with the JAX package's
 parameter tree carried across through ``params_from_numpy`` (that tree never
 passes through the port's ``init_model``)."""
@@ -21,7 +20,6 @@ from repro_torch.optim import adamw, constant
 from repro_torch.train import make_train_step
 
 CASES = {
-    "mamba": ("jamba-v0.1-52b", "mamba"),
     "embed_frontend": ("musicgen-large", "front end"),
 }
 
@@ -49,7 +47,6 @@ def carried(request):
 def test_the_carried_config_is_the_reference_config(carried):
     kind, tcfg, *_ = carried
     assert {
-        "mamba": any("mamba" in s.kinds for s in tcfg.stages),
         "embed_frontend": tcfg.frontend == "embed",
     }[kind]
 

@@ -188,7 +188,8 @@ def test_expert_tp_mesh_digital_within_the_reference_bar(workdir):
 
 def test_launcher_serves_the_engines_tokens_and_refuses_mamba():
     """``main([...])`` prints its requests' tokens: those of the engine the
-    launcher builds, on the same seed's prompts; a mamba arch is refused."""
+    launcher builds, on the same seed's prompts; an arch the port does not
+    serve (an embedding front end, since mamba is served) is refused."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         launcher.main(["--arch", "deepseek-v2-236b", "--reduced", "--device", "cpu", "--requests", "3",
@@ -203,4 +204,4 @@ def test_launcher_serves_the_engines_tokens_and_refuses_mamba():
     want = [f"  req{r.rid}: {r.generated[:12]}" for r in eng.run_until_done()]
     assert lines[1:4] == want
     with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
-        launcher.main(["--arch", "jamba-v0.1-52b", "--reduced", "--device", "cpu"])
+        launcher.main(["--arch", "musicgen-large", "--reduced", "--device", "cpu"])

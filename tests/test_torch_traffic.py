@@ -28,7 +28,7 @@ from repro.serving import ModelRunner as JRunner
 from repro.serving import ServingEngine as JEngine
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import _bucket as j_bucket
-from repro_torch.configs import StageSpec, get_config, reduced
+from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import model as TM
 from repro_torch.models.layers import CrossbarMode
@@ -111,7 +111,7 @@ def test_request_fields_are_the_reference_fields_in_order():
     assert (r.deadline, r.arrival, r.finish, r.expired) == (None, 0, None, False)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "xlstm-350m", "gemma2-9b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "xlstm-350m", "gemma2-9b", "deepseek-v2-236b", "jamba-v0.1-52b"])
 def test_cache_axes_equal_the_reference(arch):
     jcfg = jconfigs.reduced(jconfigs.get_config(arch))
     tcfg = reduced(get_config(arch))
@@ -123,11 +123,10 @@ def test_cache_axes_equal_the_reference(arch):
     assert all(len(axes[n]) == leaves[n].ndim for n in leaves)
 
 
-@pytest.mark.parametrize("kind", ["mamba"])
+@pytest.mark.parametrize("kind", ["embed_frontend"])
 def test_cache_axes_refuse_what_init_cache_refuses(kind):
-    tcfg = reduced(get_config("smollm-360m"))
-    tcfg = dataclasses.replace(tcfg, stages=(StageSpec(kinds=("mamba",), repeats=2),))
-    match = "mamba"
+    tcfg = dataclasses.replace(reduced(get_config("smollm-360m")), frontend="embed")
+    match = "front end"
     with pytest.raises(NotImplementedError, match=match):
         TM.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
