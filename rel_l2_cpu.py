@@ -19,6 +19,15 @@ once) and an MoE to one rank's experts with ``--share R/N``, e.g.::
 
     python3 rel_l2_cpu.py jamba-v0.1-52b --positions 2 4 --share 0/16 --vocab 4096
 
+A model with an embedding front end (musicgen-large, pixtral-12b) is fed
+seeded N(0, 1) frames in place of tokens and run as ``chip_smoke.py``
+serves it: ``--slots`` prompts of ``--frames`` frames, each prefilled alone
+into its slot of a pool cache, then ``--steps`` decode steps of the pool,
+each fed the next frame; the rel-L2 is taken over the prefills' last
+positions and every step's logits (``1 + steps`` positions a slot), e.g.::
+
+    python3 rel_l2_cpu.py musicgen-large --layers 2 4 8 16
+
 The fast kernel's function is exact
 integer arithmetic, so its plain version is swapped for one float64 matmul of
 the codes (exact below 2**53), requantized as the kernel does: the same
@@ -36,6 +45,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+from chip_smoke import frame_logits  # noqa: E402  (the serving chip_smoke.py holds)
 
 from repro_torch.configs import StageSpec, get_config  # noqa: E402
 from repro_torch.device import programmed as tprog  # noqa: E402
@@ -69,11 +80,18 @@ def cut_config(arch: str, layers: int, positions: int, vocab: int):
     )
 
 
-def rel_l2(cfg, share: ExpertShare, seed: int) -> dict:
+def rel_l2(cfg, share: ExpertShare, seed: int, slots: int = 4, frames: int = 32, steps: int = 16) -> dict:
     """The chip's logits against the plain-matmul model's: ``rel_l2`` and,
     where the model routes, ``forced_rel_l2``."""
     params = model_lib.init_model(cfg, seed=seed, device="cpu", share=share)
-    chip = tprog.program_model(params, tie_lm_head=cfg.tie_embeddings, device="cpu")
+    chip = tprog.program_model(params, tie_lm_head=cfg.tie_embeddings and cfg.frontend == "token", device="cpu")
+    if cfg.frontend == "embed":
+        gen = torch.Generator().manual_seed(seed + 7)
+        x = torch.randn((slots, frames + steps, cfg.d_model), generator=gen)
+        with crossbar_mode(CrossbarMode(enabled=True, strict=True, programmed=chip)), chip.bind():
+            xbar = frame_logits(params, cfg, x, steps)[0]
+        digital = frame_logits(params, cfg, x, steps)[0]
+        return {"rel_l2": float((xbar - digital).norm() / digital.norm())}
     tok = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, size=(1, 16)))
     routes, real = [], moe_mod.route_from_logits
 
@@ -110,6 +128,9 @@ def main() -> int:
     ap.add_argument("--share", default="0/1", help="R/N: rank R's experts of an N-way expert-parallel deployment")
     ap.add_argument("--vocab", type=int, default=0, help="cut the vocabulary (0: the config's)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--slots", type=int, default=4, help="embedding front end: prompts, one a slot")
+    ap.add_argument("--frames", type=int, default=32, help="embedding front end: frames a prompt")
+    ap.add_argument("--steps", type=int, default=16, help="embedding front end: decode steps")
     args = ap.parse_args()
     kvmm.crossbar_vmm_plain = exact_fast_vmm  # the CPU wrapper's plain version
     rank, ranks = (int(v) for v in args.share.split("/"))
@@ -117,7 +138,8 @@ def main() -> int:
     cuts = [(0, p) for p in args.positions] if args.positions else [(n, 0) for n in args.layers]
     for layers, positions in cuts:
         cfg = cut_config(args.arch, layers, positions, args.vocab)
-        readings = " ".join(f"{k}={v:.4f}" for k, v in rel_l2(cfg, share, args.seed).items())
+        out = rel_l2(cfg, share, args.seed, args.slots, args.frames, args.steps)
+        readings = " ".join(f"{k}={v:.4f}" for k, v in out.items())
         print(f"{args.arch} layers={cfg.n_layers} kinds={','.join(cfg.stages[0].kinds)} share={args.share} "
               f"vocab={args.vocab or 'full'} {readings}", flush=True)
     return 0

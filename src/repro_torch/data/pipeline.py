@@ -107,8 +107,8 @@ class MemmapLMDataset:
 
 class EmbeddingStubDataset:
     """Modality-frontend stub for [audio]/[vlm] archs: precomputed frame/patch
-    embeddings + token targets.  (The port's model refuses embedding front
-    ends; the batches are still the reference's.)"""
+    embeddings + token targets (the reference's batches), which the model's
+    ``loss_fn`` takes through its embedding front end."""
 
     def __init__(self, d_model: int, vocab_size: int, seq_len: int, global_batch: int,
                  seed: int = 0, process_index: Optional[int] = None, process_count: Optional[int] = None):

@@ -8,7 +8,9 @@ through the serving engine on one device.
 through the Newton bit-sliced crossbar datapath, programmed per call (the
 fast kernel on the card, its plain version on the CPU), and reports the
 analytic Newton-vs-ISAAC energy estimate for the served tokens.  An
-architecture the port does not serve (``configs.ALL_ARCHS``) is refused.
+architecture with an embedding front end (musicgen-large, pixtral-12b) is
+refused: its requests are embeddings, not token prompts, and the engine
+refuses them (the reference's launcher fails on them inside the engine).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.serving import ServingEngine
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ALL_ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -36,10 +38,12 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.arch not in ALL_ARCHS:
-        ap.error(f"--arch {args.arch}: not ported yet (the port serves {', '.join(ALL_ARCHS)})")
-
     cfg = get_config(args.arch)
+    if cfg.frontend != "token":
+        ap.error(
+            f"--arch {args.arch}: its {cfg.frontend!r} front end takes precomputed embeddings, and the "
+            "serving engine serves token prompts (models.model.prefill / decode_step serve it)"
+        )
     if args.reduced:
         cfg = reduced(cfg)
     device = model_lib.require_device(args.device)

@@ -1,15 +1,22 @@
 """Model assembly: embed -> stages (loop over stacked layers) -> norm ->
 logits (counterpart of ``repro.models.model`` for attention, mamba and
-xLSTM stages, with dense or MoE FFNs).
+xLSTM stages, with dense or MoE FFNs, behind a token or an embedding front
+end).
 
 Entry points:
   * ``init_model(cfg, seed, device, dtype, share)`` -> params (nested dicts)
-  * ``forward(params, cfg, tokens)`` -> logits (B, S, V)
+  * ``forward(params, cfg, inp)`` -> logits (B, S, V)
   * ``loss_fn(params, cfg, batch)`` -> next-token cross entropy (training)
   * ``init_cache(cfg, B, S, dtype, device)`` -> cache
   * ``cache_axes(cfg)`` -> the cache's logical axes, leaf by leaf
-  * ``prefill(params, cfg, tokens, cache)`` -> (last_logits, cache)
-  * ``decode_step(params, cfg, tok, pos, cache)`` -> (logits, cache)
+  * ``prefill(params, cfg, inp, cache)`` -> (last_logits, cache)
+  * ``decode_step(params, cfg, inp, pos, cache)`` -> (logits, cache)
+
+``inp`` is (B, S) token ids for ``cfg.frontend == "token"``, and (B, S, D)
+precomputed frame or patch embeddings for ``"embed"`` (the audio / vision
+stubs of musicgen-large and pixtral-12b), cast to ``cfg.param_dtype``
+before layer 0 (``_embed_input``).  An embedding front end has no
+``embed`` table and always an untied ``head``.
 
 Layers are stacked per stage on a leading axis (the names are the artifact
 keys); a stage runs as a Python loop over that axis.  Caches are updated in
@@ -68,15 +75,12 @@ def _check_kind(kind: str) -> None:
 
 
 def _require_ported_config(cfg: ModelConfig) -> None:
-    """Refuse what the blocks would otherwise run wrong or fail on: an
-    unknown stage kind or a non-token front end (a parameter tree carried
-    across from the reference never passes through ``init_model``, so every
-    entry point checks)."""
+    """Refuse a stage kind the blocks would otherwise run wrong or fail on
+    (a parameter tree carried across from the reference never passes
+    through ``init_model``, so every entry point checks)."""
     for spec in cfg.stages:
         for kind in spec.kinds:
             _check_kind(kind)
-    if cfg.frontend != "token":
-        raise NotImplementedError(f"{cfg.name}: front end {cfg.frontend!r} is not ported yet")
 
 
 def require_trainable(cfg: ModelConfig) -> None:
@@ -172,17 +176,18 @@ def init_model(
 ) -> Dict[str, Any]:
     """Random parameters from ``seed`` (own generator on ``device``), in
     ``cfg.param_dtype`` unless ``dtype`` is given.  Same tree, names and init
-    scales as the reference; the draws themselves differ.  Under ``share``
-    (a ``moe.ExpertShare``) the expert banks hold that share's experts only;
-    everything else is the whole model's."""
+    scales as the reference (an ``embed`` table for a token front end only,
+    a ``head`` unless a token front end ties it); the draws themselves
+    differ.  Under ``share`` (a ``moe.ExpertShare``) the expert banks hold
+    that share's experts only; everything else is the whole model's."""
     _require_ported_config(cfg)
     device = require_device(device)
     dtype = dtype or getattr(torch, cfg.param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params: Dict[str, Any] = {
-        "embed": {"tokens": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype, device)}
-    }
+    params: Dict[str, Any] = {}
+    if cfg.frontend == "token":
+        params["embed"] = {"tokens": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype, device)}
     for si, spec in enumerate(cfg.stages):
         params[f"stage{si}"] = {
             f"b{i}": _init_block(
@@ -192,7 +197,7 @@ def init_model(
             for i, kind in enumerate(spec.kinds)
         }
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.frontend != "token":
         params["head"] = _normal(
             gen, (cfg.d_model, cfg.vocab_size), cfg.d_model**-0.5, dtype, device
         )
@@ -229,7 +234,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, dev
 def cache_axes(cfg: ModelConfig):
     """Logical-axis tree parallel to ``init_cache``: cache_batch, cache_seq
     (``serving.kvcache`` pages along it), kv_heads / heads / d_inner.
-    Refuses what ``init_cache`` refuses (an embedding front end)."""
+    Refuses what ``init_cache`` refuses (an unknown stage kind)."""
     _require_ported_config(cfg)
 
     def block_axes(kind: str):
@@ -357,6 +362,16 @@ def _run_stage(
     return x, cache_stage
 
 
+def _embed_input(params, cfg: ModelConfig, inp: torch.Tensor) -> torch.Tensor:
+    """Layer 0's input: token ids through the embedding table, or
+    precomputed frame / patch embeddings (B, S, D) cast to
+    ``cfg.param_dtype`` (in bf16 the stub's float32 frames are rounded
+    here, as in the reference)."""
+    if cfg.frontend == "token":
+        return embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)
+    return inp.to(getattr(torch, cfg.param_dtype))
+
+
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings and cfg.frontend == "token":
@@ -383,7 +398,7 @@ def _stages(params, cfg: ModelConfig, x, positions, cache=None, decode_pos=None,
 def forward(params, cfg: ModelConfig, inp: torch.Tensor, positions=None) -> torch.Tensor:
     """Full-sequence forward. Returns logits (B, S, V)."""
     _require_ported_config(cfg)
-    x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)
+    x = _embed_input(params, cfg, inp)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     return _logits(params, cfg, _stages(params, cfg, x, positions))
@@ -407,9 +422,9 @@ def _chunk_nll(params, cfg: ModelConfig, xc, tc, mc) -> torch.Tensor:
 
 
 def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """Next-token cross entropy.  ``batch``: {"inputs": (B, S) tokens,
-    "targets": (B, S), optional "mask": (B, S)}; the masked sum over
-    ``max(sum(mask), 1)``.
+    """Next-token cross entropy.  ``batch``: {"inputs": (B, S) tokens or
+    (B, S, D) embeddings, "targets": (B, S), optional "mask": (B, S)}; the
+    masked sum over ``max(sum(mask), 1)``.
 
     The head and logsumexp run in chunks of ``LOSS_CHUNK`` positions (the
     whole sequence where ``S`` is not a multiple), each recomputed in
@@ -425,7 +440,7 @@ def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
             "loss_fn under an enabled crossbar mode runs without grad only (a chip's "
             "evaluation loss); training runs on the plain matmuls"
         )
-    x = embed(params["embed"], batch["inputs"], cfg.embed_scale, cfg.d_model)
+    x = _embed_input(params, cfg, batch["inputs"])
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     x = _stages(params, cfg, x, positions, remat=cfg.remat and grad)
@@ -445,7 +460,7 @@ def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
 def prefill(params, cfg: ModelConfig, inp: torch.Tensor, cache):
     """Process the prompt, fill the cache; returns (last_logits, cache)."""
     _require_ported_config(cfg)
-    x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)
+    x = _embed_input(params, cfg, inp)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _stages(params, cfg, x, positions, cache=cache)
     return _logits(params, cfg, x[:, -1:])[:, 0], cache
@@ -456,7 +471,7 @@ def decode_step(params, cfg: ModelConfig, inp: torch.Tensor, pos: torch.Tensor, 
     """One decode step at position ``pos`` — 0-d, or (B,) per-slot positions
     for continuous batching.  Returns (logits, cache)."""
     _require_ported_config(cfg)
-    x = embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)  # (B, 1)
+    x = _embed_input(params, cfg, inp)  # (B, 1) tokens or (B, 1, D) embeddings
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
     x = _stages(params, cfg, x, positions, cache=cache, decode_pos=pos)

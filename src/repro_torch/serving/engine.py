@@ -56,6 +56,13 @@ tokens; the engine adds no collective for that.  A chip's lifecycle past
 ``age`` and ``hot_swap`` (``health_check``, ``compensate``, ``refresh``) and
 ``save_artifacts`` are refused under a mesh.
 
+An embedding front end (musicgen-large, pixtral-12b: precomputed frame or
+patch embeddings in place of tokens) programs, checks and saves its chip
+like any model; ``ServingEngine.submit`` refuses its requests, since a slot
+holds token ids (the reference's engine fails on them in its admission).
+Such a chip serves through ``models.model.prefill`` / ``decode_step`` under
+the runner's crossbar mode.
+
 Generation is deterministic given (seed, admission order).  The decode tick
 returns host float32 logits — one device synchronisation per tick.
 """
@@ -343,10 +350,16 @@ class ModelRunner:
         forward under the runner's crossbar mode must consume exactly the
         programmed model's emitted name set — a renamed layer or an artifact
         no call site serves fails construction, before the first request.
-        The ambient miss and consumption records are put back afterwards."""
+        An embedding front end's forward takes (1, 4, D) zero embeddings in
+        the params' dtype.  The ambient miss and consumption records are put
+        back afterwards."""
         if self.crossbar is None or self.crossbar.programmed is None:
             return
-        inp = torch.zeros((1, 4), dtype=torch.long, device=self.device)
+        if self.cfg.frontend == "token":
+            inp = torch.zeros((1, 4), dtype=torch.long, device=self.device)
+        else:
+            dtype = self.params["final_norm"].dtype
+            inp = torch.zeros((1, 4, self.cfg.d_model), dtype=dtype, device=self.device)
         before_consumed = prog_mod.consumed_artifact_names()
         before_misses = layers_mod.crossbar_miss_counts()
         prog_mod.reset_consumed_artifact_names()
@@ -763,6 +776,13 @@ class ServingEngine:
         truncate: bool = False,
         on_token: Optional[Callable[[Request, int], None]] = None,
     ) -> int:
+        if self.cfg.frontend != "token":
+            # the reference's engine fails on such a request inside its
+            # admission (a token buffer); refused here, before it is queued
+            raise ValueError(
+                f"{self.cfg.name}: front end {self.cfg.frontend!r} (precomputed frame / patch embeddings): the serving "
+                "engine takes token prompts; serve it through models.model.prefill / decode_step"
+            )
         prompt = np.asarray(prompt)
         # refuse over-length prompts at submit time unless truncation was
         # explicitly allowed

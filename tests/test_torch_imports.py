@@ -39,7 +39,8 @@ def test_port_has_the_expected_modules():
         "models/moe.py", "configs/kimi_k2_1t.py",
         "tree.py", "optim/optimizers.py", "optim/schedules.py", "data/pipeline.py", "train/loop.py",
         "launch/train.py", "launch/mesh.py", "train/compression.py", "configs/deepseek_v2_236b.py",
-        "launch/serve.py", "models/ssm.py", "configs/jamba_52b.py",
+        "launch/serve.py", "models/ssm.py", "configs/jamba_52b.py", "configs/musicgen_large.py",
+        "configs/pixtral_12b.py",
     ):
         assert want in names, want
     for src in ("crossbar_vmm.cu", "slstm_scan.cu"):

@@ -49,7 +49,7 @@ def test_configs_are_the_same(tiny):
     assert (full_t.n_layers, full_t.d_model, full_t.n_heads, full_t.n_kv_heads, full_t.head_dim,
             full_t.d_ff, full_t.vocab_size) == (32, 960, 15, 5, 64, 2560, 49152)
     with pytest.raises(KeyError):
-        get_config("musicgen-large")  # not registered in the port yet
+        get_config("no-such-arch")  # an unregistered name
 
 
 def test_params_carry_over_names_and_values(tiny):

@@ -111,7 +111,10 @@ def test_request_fields_are_the_reference_fields_in_order():
     assert (r.deadline, r.arrival, r.finish, r.expired) == (None, 0, None, False)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "xlstm-350m", "gemma2-9b", "deepseek-v2-236b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize(
+    "arch", ["smollm-360m", "xlstm-350m", "gemma2-9b", "deepseek-v2-236b", "jamba-v0.1-52b", "musicgen-large",
+             "pixtral-12b"],
+)
 def test_cache_axes_equal_the_reference(arch):
     jcfg = jconfigs.reduced(jconfigs.get_config(arch))
     tcfg = reduced(get_config(arch))
@@ -123,15 +126,16 @@ def test_cache_axes_equal_the_reference(arch):
     assert all(len(axes[n]) == leaves[n].ndim for n in leaves)
 
 
-@pytest.mark.parametrize("kind", ["embed_frontend"])
+@pytest.mark.parametrize("kind", ["unknown_stage_kind"])
 def test_cache_axes_refuse_what_init_cache_refuses(kind):
-    tcfg = dataclasses.replace(reduced(get_config("smollm-360m")), frontend="embed")
-    match = "front end"
-    with pytest.raises(NotImplementedError, match=match):
+    tcfg = reduced(get_config("smollm-360m"))
+    tcfg = dataclasses.replace(tcfg, stages=(dataclasses.replace(tcfg.stages[0], kinds=("conv",)),))
+    match = "unknown stage kind"
+    with pytest.raises(ValueError, match=match):
         TM.init_cache(tcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         TM.cache_axes(tcfg)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         BlockKVCache(tcfg, 1, 8, device="cpu")
 
 
