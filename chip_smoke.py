@@ -18,7 +18,12 @@ Phases (one JSON line each; any failure is an uncaught exception):
                and pixtral-12b; the paper and noisy ones
                at K = 4096 and 14336), the
                scan at ragged dh, dh = 2048, 5 and 9 batch rows and one head,
-               each scan case with the launch plan it ran
+               each scan case with the launch plan it ran; the scan's saving
+               forward (against the serving kernel and, its planes, the plain
+               version) and its backward kernel (against the plain reverse
+               loop on the same planes: g, carries, dR) at the xlstm train
+               shape, one row of 48, the reduced dh 32, 9 rows, dh 100 and
+               2048, in bf16 and float32
   planned_datapaths  the planned divide-and-conquer datapaths (Karatsuba
                levels 1 and 2, Strassen) at the main-path shapes, M = 4 and
                32: output codes equal to the fast kernel's, with TF32 allowed
@@ -133,14 +138,15 @@ Phases (one JSON line each; any failure is an uncaught exception):
                (busy ms a tick: K1, the mamba blocks, the rest as a difference
                of the two windows) and graph_vs_eager_jamba
   serve_musicgen  musicgen-large (an embedding front end: precomputed
-               frame embeddings in place of tokens) at full width and depth,
+               frame embeddings in place of tokens) at full width, 24 of its
+               48 layers (EMBED_LAYERS: the script's time limit),
                random bf16 weights, an ideal chip that ``ServingEngine``
                programs and checks (its ``submit`` refuses a frame prompt and
                a token prompt, as the reference's engine fails on them):
                4 seeded 32-frame prompts, each prefilled alone into its slot
                of a pool cache, then 16 decode steps of the pool, each fed
                the next frame, through the model's ``prefill`` and
-               ``decode_step``; 289 K1 launches a forward asserted, each at
+               ``decode_step``; 145 K1 launches a forward asserted, each at
                an (M, K, N) the kernels phase holds; the logits of every
                served position ``torch.equal`` to the same run with K1's
                plain version in every launch and within EMBED_REL_L2_MAX of
@@ -276,9 +282,9 @@ Phases (one JSON line each; any failure is an uncaught exception):
   Training, after the served paths:
   train_smollm  smollm-360m trained at full width and depth (bf16 params,
                remat, AdamW under cosine_with_warmup, B = 4, S = 1024: two
-               loss chunks): (a) 12 uninterrupted ``TrainLoop`` steps against
-               6 steps with a checkpoint at 6, fresh params and state restored
-               by ``maybe_resume`` and 6 more: every param and optimizer-state
+               loss chunks): (a) 6 uninterrupted ``TrainLoop`` steps against
+               3 steps with a checkpoint at 3, fresh params and state restored
+               by ``maybe_resume`` and 3 more: every param and optimizer-state
                leaf ``torch.equal``; (b) 30 steps on one fixed batch: none
                skipped, every loss finite, every param leaf moved, the last
                loss below 0.9 x the first; (c) one poisoned step (loss x NaN):
@@ -300,12 +306,24 @@ Phases (one JSON line each; any failure is an uncaught exception):
   train_launcher  ``python -m repro_torch.launch.train --arch smollm-360m
                --steps 4 --batch 4 --seq 256 --ckpt-dir <tmp>`` then the same
                with ``--steps 8``: both exit 0, the second resumes from step 4
-  train_musicgen  musicgen-large at full width, 12 of its 48 layers (bf16,
+  train_musicgen  musicgen-large at full width, 6 of its 48 layers (bf16,
                remat, AdamW), on the stub dataset's frame embeddings and
                token targets (``make_dataset``: B = 4, S = 1024): 20 steps on
                one fixed batch, none skipped, every loss finite, the last
                below 0.9 x the first; the reduced config's loss and grads in
                float32 on the card and on the CPU; step ms, tokens/s, peak GB
+  train_xlstm  xlstm-350m trained at full width and depth (24 layers, 12 of
+               them sLSTM; bf16, remat, AdamW, B = 4, S = 1024) through
+               ``SlstmScan``: per step 24 launches of the scan's saving
+               forward and 12 of its backward kernel asserted, 30 steps on
+               one fixed batch (none skipped, every loss finite, every leaf
+               and every sLSTM layer's w_in / r_* moved, the last loss below
+               0.9 x the first), one profiled window of 2 steps
+               (train_profile_xlstm: busy ms by class, the profiler's kernel
+               calls held to the counters), the dR products timed apart; the
+               reduced config's loss and grads in float32 on the card and on
+               the CPU at 256 positions (at 1024 the loss, the grads printed:
+               the gradient jumps where n_t crosses 1, xlstm_grad_spread.py)
 
 Needs one CUDA device; exits non-zero without one.  ``--quick`` (not used by
 the default run) cuts the kernel cases and the model depth for a fast check
@@ -357,6 +375,7 @@ from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.moe import ExpertShare, expert_share  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
     CrossbarMode, crossbar_misses, crossbar_mode, layout_overrides, reset_crossbar_misses, use_mesh,
@@ -631,16 +650,17 @@ JAMBA_SHAPES = [
 # prompts of EMBED_FRAMES seeded N(0, 1) frames, each prefilled alone into
 # its slot of a float32 pool cache (K1 at M = 32, the head at M = 1), then
 # the decode steps of the pool (M = 4), each fed the next frame.
-# musicgen-large runs at full width and depth; pixtral-12b at full width and
-# vocabulary, cut to 4 of its 40 layers for memory (1.76 G weights: 3.5 GB
+# musicgen-large runs at full width, 24 of its 48 layers (the script's time
+# limit); pixtral-12b at full width and vocabulary, cut to 4 of its 40 layers
+# for memory (1.76 G weights: 3.5 GB
 # of bf16 params and about 7.1 GB of chip; its whole chip would be 47 GB).
 MUSICGEN, PIXTRAL = "musicgen-large", "pixtral-12b"
 EMBED_SLOTS, EMBED_FRAMES = 4, 32
-EMBED_LAYERS = {MUSICGEN: 48, PIXTRAL: 4}
+EMBED_LAYERS = {MUSICGEN: 24, PIXTRAL: 4}
 EMBED_STEPS = {MUSICGEN: 16, PIXTRAL: 8}
 # K1 launches a forward: 6 a layer (wq, wk, wv, wo, the FFN's wi and wo) +
 # the untied head
-EMBED_K1_PER_FORWARD = {MUSICGEN: 289, PIXTRAL: 25}
+EMBED_K1_PER_FORWARD = {MUSICGEN: 145, PIXTRAL: 25}
 # The chip's logits against the plain-matmul model's over every served
 # position (each prefill's last and every decode step's), rel-L2.  Set
 # before the first chip run from ``python3 rel_l2_cpu.py <arch>`` (the same
@@ -668,10 +688,10 @@ EMBED_SHAPES = {
 }
 # the store round trip runs on a copy of the chip cut to this depth
 EMBED_STORE_LAYERS = 2
-# train_musicgen: musicgen-large at full width cut to 12 of its 48 layers,
+# train_musicgen: musicgen-large at full width cut to 6 of its 48 layers,
 # bf16, remat, AdamW, on the stub dataset's embeddings (B x S as
 # train_smollm's), EMBED_TRAIN_STEPS steps on one fixed batch
-EMBED_TRAIN_LAYERS, EMBED_TRAIN_STEPS = 12, 20
+EMBED_TRAIN_LAYERS, EMBED_TRAIN_STEPS = 6, 20
 # moe_expert_chips: one full-width MoE FFN of the rank share of EP48 (8
 # experts) on NOISY_DEVICE, one chip identity an expert, at these token
 # counts
@@ -689,7 +709,18 @@ SCAN_EDGES = [
     ("ragged", 2, 5, 3, 48), ("dh100", 5, 4, 2, 100), ("dh2048", 2, 3, 1, 2048),
     ("B5", 5, 3, 4, 512), ("B9", 9, 3, 4, 512), ("B9_decode", 9, 1, 4, 512), ("H1", 1, 8, 1, 512),
 ]
-SCAN_KERNEL = "slstm_cluster_kernel"  # its name in a profiler trace
+SCAN_KERNEL = "slstm_cluster_kernel"  # its name in a profiler trace (serving and saving forward)
+SCAN_BWD_KERNEL = "slstm_scan_bwd_kernel"
+# the scan's saving forward and its backward (training), held to their plain
+# versions on the same inputs from the training state (c = 0, n = 1, h = 0):
+# (label, B, S, H, dh, timed).  train: xlstm-350m's train step (B 4 x S 1024,
+# 4 heads of 512); S48: one row; reduced: the reduced config that
+# train_card_vs_cpu trains (dh 32, float32 there); B9: three batch groups of
+# 3 rows; dh100 / dh2048: ragged columns, and R partly resident
+SCAN_TRAIN_CASES = [
+    ("train", 4, 1024, 4, 512, True), ("S48", 1, 48, 4, 512, True), ("reduced", 2, 1024, 4, 32, True),
+    ("B9", 9, 24, 4, 512, False), ("dh100", 5, 16, 2, 100, False), ("dh2048", 2, 8, 1, 2048, False),
+]
 # the spin kernels (torch.cuda._sleep) that open each profiled window to
 # take the profiler's loss of a session's first records (profiler_session)
 PROFILE_PROLOGUE, PROLOGUE_SPIN_CYCLES, PROLOGUE_KERNEL = 4096, 1000, "spin_kernel"
@@ -698,6 +729,7 @@ PROFILE_RUNS = 3
 # the kernel each launch counter counts, by its name in a profiler trace
 TRACE_NAMES = {
     "fast": "fast_kernel", "planes": "paper_mma_kernel", "noisy": "noisy_mma_kernel", "slstm_scan": SCAN_KERNEL,
+    "slstm_scan_save": SCAN_KERNEL, "slstm_scan_bwd": SCAN_BWD_KERNEL,
 }
 VMM_COUNTERS = tuple(kvmm.LAUNCHES)  # the three VMM kernels' launch counters
 # the head is the only projection of an xlstm chip: its logits stay close to
@@ -707,8 +739,21 @@ XLSTM_REL_L2_MAX = 0.1
 # (S = 1024: two loss chunks of 512); AdamW under cosine_with_warmup(lr,
 # steps // 10 + 1, steps), as the launcher sets it
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 1024, 1e-3
-RESUME_STEPS = 12  # the uninterrupted run; the resumed one checkpoints at half
+RESUME_STEPS = 6  # the uninterrupted run; the resumed one checkpoints at half
 LEARN_STEPS = 30  # on one fixed batch: the last loss below 0.9 x the first
+# train_xlstm: xlstm-350m at full width and depth (12 sLSTM layers), B x S =
+# TRAIN_BATCH x XLSTM_TRAIN_SEQ, LEARN_STEPS steps; per step, with remat, each
+# sLSTM layer's saving forward runs twice (forward, recompute) and its
+# backward once
+XLSTM_TRAIN_SEQ = 1024
+# the reduced xlstm's loss and grads card vs CPU are held to CARD_VS_CPU_* at
+# 256 positions.  Its gradient jumps where n_t crosses 1 (the weight of
+# max(n_t, 1)), and over 2 x 1024 positions a cell may sit within float32
+# rounding of 1: at seed 63 params scaled by 1 + 1e-7 N(0, 1) move r_i's
+# gradient by 1.9e-3 on the CPU alone (at 256 positions <= 5.2e-6, seeds
+# 63-65; xlstm_grad_spread.py).  At 1024 the line prints the card vs CPU
+# reading (``at_1024``), gated on the loss only
+XLSTM_CARD_VS_CPU_SEQ = 256
 # the port's loss and grads on the card against the CPU, reduced smollm in
 # float32 (TF32 off): reduction orders only
 CARD_VS_CPU_LOSS_REL = 1e-5
@@ -728,6 +773,20 @@ SCAN_TOLERANCE = (
     "h can land on the neighbouring value"
 )
 
+def scan_train_rel_max(S: int) -> float:
+    """The rel-L2 bar of the backward (g, carries, dR) and of the saving
+    forward's planes against their plain versions at S steps."""
+    return 1e-5 if S <= 48 else 1e-4
+
+
+SCAN_TRAIN_TOLERANCE = (
+    "the backward's float32 g, dc0, dn0, dh0 and dR (the product over B S of h_{t-1} and g) against the "
+    "plain backward on the same saved planes, and the saving forward's planes against the plain version's: "
+    "rel-L2 <= 1e-5 up to S = 48, <= 1e-4 at S = 1024 (the same float32 arithmetic, the dh products "
+    "summed in another order, carried through S steps); the saving forward's h_all / c1 / n1 / h1 against "
+    "the serving kernel's within the scan tolerance (the same arithmetic: bit-equal expected, reported)"
+)
+
 KERNELS = {
     "fast": dict(
         name="crossbar_vmm_fast", counter="fast", source=CSRC, tolerance=BIT_IDENTICAL,
@@ -745,10 +804,23 @@ KERNELS = {
         headline=dict(M=4, K=960, N=5120),
     ),
     "slstm": dict(
-        name="slstm_scan", counter="slstm_scan", source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+        name="slstm_scan", counter="slstm_scan", source="src/repro_torch/kernels/csrc/slstm_scan.cuh",
         tolerance=SCAN_TOLERANCE,
         replaces="src/repro/kernels/slstm_scan.py:70 (slstm_scan_pallas) -> :31 (_kernel)",
         headline=dict(dtype="bfloat16", B=4, S=1),
+    ),
+    "slstm_save": dict(
+        name="slstm_scan_save", counter="slstm_scan_save", source="src/repro_torch/kernels/csrc/slstm_scan.cuh",
+        tolerance=SCAN_TRAIN_TOLERANCE,
+        replaces="src/repro/kernels/slstm_scan.py:70 (slstm_scan_pallas) -> :31 (_kernel); training: the "
+                 "forward of the jax.lax.scan at src/repro/models/xlstm.py:213 under autodiff",
+        headline=dict(dtype="bfloat16", B=4, S=1024),
+    ),
+    "slstm_bwd": dict(
+        name="slstm_scan_bwd", counter="slstm_scan_bwd", source="src/repro_torch/kernels/csrc/slstm_scan.cuh",
+        tolerance=SCAN_TRAIN_TOLERANCE,
+        replaces="src/repro/models/xlstm.py:213 (JAX's autodiff of slstm_block's jax.lax.scan; no Pallas kernel)",
+        headline=dict(dtype="bfloat16", B=4, S=1024),
     ),
 }
 
@@ -1259,14 +1331,16 @@ def fold_case(base, dev):
     return case
 
 
-def scan_bound_ms(B, S, H, dh, esize):
+def scan_bound_ms(B, S, H, dh, esize, saved=False):
     """Least time for one scan: max(bytes / HBM rate, operations / float32
     rate).  Bytes: the four recurrent matrices, ``pre`` and ``h_all`` at
     ``esize`` bytes a value, the six (B, H, dh) float32 state tensors, each
-    once.  Operations: the four h . R products of every step, 2 B S 4 H dh^2
-    (float32: the function sums float32 products).  The S sequential steps
-    are not part of it."""
+    once, and with ``saved`` the six float32 planes the saving forward
+    writes.  Operations: the four h . R products of every step, 2 B S 4 H
+    dh^2 (float32: the function sums float32 products).  The S sequential
+    steps are not part of it."""
     nbytes = 4 * H * dh * dh * esize + B * S * 5 * H * dh * esize + 6 * B * H * dh * 4
+    nbytes += B * S * H * dh * 4 * len(kscan.SAVED_PLANES) if saved else 0
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2.0 * B * S * 4 * H * dh * dh / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1278,6 +1352,19 @@ def _bf16_ulps(a, b):
         i = t.view(torch.int16).to(torch.int32)
         return torch.where(i < 0, -(i & 0x7FFF), i)
     return (ordered(a) - ordered(b)).abs()
+
+
+def scan_agreement(got, ref, dtype):
+    """``SCAN_TOLERANCE`` on (h_all, c1, n1, h1): whether each output is
+    within it, each one's max |error|, and h_all's max bfloat16 ULPs."""
+    err = [(g.float() - r.float()).abs() for g, r in zip(got, ref)]
+    within = [bool((e <= 1e-5 + 1e-5 * r.float().abs()).all()) for e, r in zip(err, ref)]
+    max_ulps = None
+    if dtype == torch.bfloat16:
+        ulps = _bf16_ulps(got[0], ref[0])
+        max_ulps = int(ulps.max())
+        within[0] = bool(((ulps <= 1) | (err[0] <= 1e-5)).all())
+    return within, [float(e.max()) for e in err], max_ulps
 
 
 def run_scan_case(label, B, S, H, dh, dtype, seed, dev, timed):
@@ -1303,17 +1390,11 @@ def run_scan_case(label, B, S, H, dh, dtype, seed, dev, timed):
         [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype) for t in ref],
         f"scan outputs {[(t.shape, t.dtype) for t in got]} != {[(t.shape, t.dtype) for t in ref]}",
     )
-    err = [(g.float() - r.float()).abs() for g, r in zip(got, ref)]
-    within = [bool((e <= 1e-5 + 1e-5 * r.float().abs()).all()) for e, r in zip(err, ref)]
-    max_ulps = None
-    if dtype == torch.bfloat16:
-        ulps = _bf16_ulps(got[0], ref[0])
-        max_ulps = int(ulps.max())
-        within[0] = bool(((ulps <= 1) | (err[0] <= 1e-5)).all())
+    within, err, max_ulps = scan_agreement(got, ref, dtype)
     case = dict(
         kernel=KERNELS["slstm"]["name"], case=label, dtype=str(dtype).replace("torch.", ""),
         B=B, S=S, H=H, dh=dh, shape=[B, S, H, dh], steps=S, equal=all(within),
-        max_abs_err=max(float(e.max()) for e in err), max_bf16_ulps=max_ulps,
+        max_abs_err=max(err), max_bf16_ulps=max_ulps,
         equal_by_output=dict(zip(("h_all", "c1", "n1", "h1"), within)),
         plan=plan._asdict(),
     )
@@ -1328,6 +1409,115 @@ def run_scan_case(label, B, S, H, dh, dtype, seed, dev, timed):
         case["bound_ms"], case["bound_by"] = scan_bound_ms(B, S, H, dh, pre.element_size())
         case["library_ms"] = None  # no one PyTorch call computes the sLSTM scan
     return case
+
+
+def scan_bwd_bound_ms(B, S, H, dh, esize):
+    """Least time for one backward: max(bytes / HBM rate, operations /
+    float32 rate).  Bytes: the six saved float32 planes and ``dh_all`` read,
+    ``g`` (four float32 planes) written, the four recurrent matrices and the
+    eight (B, H, dh) float32 states and carries, each once.  Operations: the
+    four R . g products of every step, 2 B S 4 H dh^2 float32."""
+    nbytes = B * S * H * dh * (4 * len(kscan.SAVED_PLANES) + esize + 4 * 4) + 4 * H * dh * dh * esize
+    nbytes += 8 * B * H * dh * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * B * S * 4 * H * dh * dh / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def timed_once(fn):
+    """``fn()`` and its milliseconds by CUDA events (one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def torch_rel_l2(a, ref) -> float:
+    a, ref = a.double(), ref.double()
+    return float((a - ref).norm() / ref.norm().clamp(min=1e-300))
+
+
+def run_scan_train_case(label, B, S, H, dh, dtype, seed, dev, timed):
+    """The saving forward and the backward of the scan against their plain
+    versions, from the training state (c = 0, n = 1, h = 0), with seeded
+    gradients for h_all and the final state.  The saving forward's h_all /
+    c1 / n1 / h1 against the serving kernel's (``SCAN_TOLERANCE``) and its
+    planes against the plain version's; the backward on the kernel's planes
+    against the plain backward on the same, on g, the carries and dR
+    (``scan_train_rel_max``).  Returns the two cases."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    pre = normal(B, S, 4, H, dh).to(dtype)
+    rs = [(normal(H, dh, dh) * dh**-0.5).to(dtype) for _ in range(4)]
+    c0, h0, n0 = torch.zeros((B, H, dh), device=dev), torch.zeros((B, H, dh), device=dev), torch.ones((B, H, dh), device=dev)
+    dh_all = normal(B, S, H, dh).to(dtype)
+    carries = [normal(B, H, dh) for _ in range(3)]
+    save = lambda: kscan.slstm_scan_save_cuda(pre, *rs, c0, n0, h0)  # noqa: E731
+    got = save()
+    served = slstm_scan_cuda(pre, *rs, c0, n0, h0)
+    plain_saved, save_plain_ms = timed_once(lambda: kscan.slstm_scan_save_plain(pre, *rs, c0, n0, h0)[4])
+    bar = scan_train_rel_max(S)
+    within, err, max_ulps = scan_agreement(got[:4], served, dtype)
+    plane_err = {n: torch_rel_l2(got[4][k], plain_saved[k]) for k, n in enumerate(kscan.SAVED_PLANES)}
+    save_case = dict(
+        kernel=KERNELS["slstm_save"]["name"], case=label, dtype=str(dtype).replace("torch.", ""),
+        B=B, S=S, H=H, dh=dh, shape=[B, S, H, dh], steps=S,
+        equal=all(within) and all(e <= bar for e in plane_err.values()),
+        max_abs_err=max(err), max_bf16_ulps=max_ulps,
+        equal_to_serving_kernel=dict(zip(("h_all", "c1", "n1", "h1"), within)),
+        bit_equal_to_serving_kernel=all(torch.equal(a, b) for a, b in zip(got[:4], served)),
+        planes_rel_l2_to_plain=plane_err, rel_l2_max=bar,
+        plan=kscan.plan_scan(B, S, H, dh, pre.element_size(), kscan.card_max_cluster(dtype))._asdict(),
+    )
+    del served, plain_saved
+    saved = got[4]
+    bwd = lambda: kscan.slstm_scan_bwd_cuda(dh_all, saved, *rs, c0, n0, *carries)  # noqa: E731
+    plain = lambda: kscan.slstm_scan_bwd_plain(dh_all, saved, *rs, c0, n0, *carries)  # noqa: E731
+    kg = bwd()
+    pg, bwd_plain_ms = timed_once(plain)
+    h_prev = kscan.h_before_each_step(saved, h0)
+    d_r = [torch.einsum("bshd,bsghe->ghde", h_prev, g[0]) for g in (kg, pg)]
+    errs = {n: torch_rel_l2(k, p) for n, k, p in zip(("g", "dc0", "dn0", "dh0"), kg, pg)}
+    errs["dR"] = torch_rel_l2(*d_r)
+    bwd_case = dict(
+        kernel=KERNELS["slstm_bwd"]["name"], case=label, dtype=str(dtype).replace("torch.", ""),
+        B=B, S=S, H=H, dh=dh, shape=[B, S, H, dh], steps=S, equal=all(e <= bar for e in errs.values()),
+        max_abs_err=max(float((k - p).abs().max()) for k, p in zip(kg, pg)),
+        rel_l2_to_plain=errs, rel_l2_max=bar,
+        plan=kscan.plan_scan_bwd(B, S, H, dh, pre.element_size(), kscan.card_max_cluster(dtype, True))._asdict(),
+    )
+    del kg, pg, d_r, h_prev
+    for case, name in ((save_case, "saving forward"), (bwd_case, "backward")):
+        if not case["equal"]:
+            emit({"phase": "kernels", "failed_case": case})
+            raise AssertionError(f"scan {name} disagrees with its plain version: {case}")
+    if timed:
+        for case, kernel, plain_ms, bound in (
+            (save_case, save, save_plain_ms, scan_bound_ms(B, S, H, dh, pre.element_size(), saved=True)),
+            (bwd_case, bwd, bwd_plain_ms, scan_bwd_bound_ms(B, S, H, dh, pre.element_size())),
+        ):
+            case["call_ms"] = cuda_ms(kernel, reps=10)
+            case["kernel_ms"] = graph_ms(kernel, launches=5 if S > 48 else 20)
+            case["plain_ms"] = plain_ms  # the comparison's call: a loop of S steps
+            case["bound_ms"], case["bound_by"] = bound
+            case["library_ms"] = None  # no one PyTorch call computes the scan or its backward
+    torch.cuda.empty_cache()
+    return [save_case, bwd_case]
+
+
+def scan_train_cases(dev, quick: bool):
+    cases = []
+    seed = 1500
+    for dtype in ((torch.bfloat16,) if quick else (torch.bfloat16, torch.float32)):
+        for label, B, S, H, dh, timed in (SCAN_TRAIN_CASES[1:2] if quick else SCAN_TRAIN_CASES):
+            seed += 1
+            cases += run_scan_train_case(label, B, S, H, dh, dtype, seed, dev, timed)
+    return cases
 
 
 def scan_cases(dev, quick: bool):
@@ -4948,9 +5138,10 @@ def step_stats(seconds, tokens, n_params):
 def train_smollm(cfg, dev, seed):
     """smollm-360m trained on the card at full width (bf16 params, remat,
     AdamW under cosine_with_warmup, B = 4, S = 1024: two loss chunks).
-    (a) resume: 12 uninterrupted ``TrainLoop`` steps against 6 steps with
-    a checkpoint at 6, fresh params and state restored by ``maybe_resume``
-    and 6 more: every param and state leaf ``torch.equal``; (b) learning:
+    (a) resume: ``RESUME_STEPS`` uninterrupted ``TrainLoop`` steps against
+    half of them with a checkpoint there, fresh params and state restored by
+    ``maybe_resume`` and the other half: every param and state leaf
+    ``torch.equal``; (b) learning:
     30 steps on one fixed batch, none skipped, every loss finite, every
     param leaf moved, the last loss below 0.9 x the first; (c) one poisoned
     step (loss x NaN): skipped, params and state ``torch.equal`` to before;
@@ -5107,21 +5298,21 @@ def train_profile(step_fn, p, o, step, batch, steps=2):
     return line
 
 
-def train_card_vs_cpu(dev, seed, arch="smollm-360m"):
-    """The port's loss and grads of the reduced ``arch`` in float32 (two
-    loss chunks of 512) on the card and on the CPU, from the same params and
-    batch (``make_dataset``'s: synthetic tokens, or the stub's embeddings
-    for an embedding front end)."""
+def train_card_vs_cpu(dev, seed, arch="smollm-360m", seq=1024):
+    """The port's loss and grads of the reduced ``arch`` in float32 (B = 2,
+    ``seq`` positions: two loss chunks of 512 at 1024) on the card and on
+    the CPU, from the same params and batch (``make_dataset``'s: synthetic
+    tokens, or the stub's embeddings for an embedding front end)."""
     cfg = reduced(get_config(arch))
     params = model_lib.init_model(cfg, seed, device="cpu")
-    batch = {k: torch.from_numpy(v) for k, v in make_dataset(cfg, 1024, 2, seed).batch_at(0).items()}
+    batch = {k: torch.from_numpy(v) for k, v in make_dataset(cfg, seq, 2, seed).batch_at(0).items()}
     loss_fn = lambda q, b: model_lib.loss_fn(q, cfg, b)  # noqa: E731
     cpu_loss, cpu_grads = value_and_grad(loss_fn, params, batch)
     card_loss, card_grads = value_and_grad(loss_fn, tree_map(lambda t: t.to(dev), params), on_device(batch, dev))
     cg, kg = flatten(cpu_grads), flatten(card_grads)
     errs = {k: float((kg[k].cpu() - cg[k]).norm() / cg[k].norm()) for k in cg}
     return dict(
-        card_vs_cpu_loss=[float(card_loss), float(cpu_loss)],
+        card_vs_cpu_seq=seq, card_vs_cpu_loss=[float(card_loss), float(cpu_loss)],
         card_vs_cpu_loss_rel=abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss)),
         card_vs_cpu_grad_rel_l2_max=max(errs.values()), card_vs_cpu_worst_leaf=max(errs, key=errs.get),
     )
@@ -5175,6 +5366,107 @@ def train_musicgen(dev, seed, quick):
     require(losses[-1] < 0.9 * losses[0], f"train_musicgen: loss {losses[0]} -> {losses[-1]}, not below 0.9x")
     require(line["card_vs_cpu_loss_rel"] <= CARD_VS_CPU_LOSS_REL, f"train_musicgen: card vs CPU loss {line}")
     require(line["card_vs_cpu_grad_rel_l2_max"] <= CARD_VS_CPU_GRAD_REL_L2, f"train_musicgen: card vs CPU grads {line}")
+
+
+def train_xlstm(dev, seed, quick):
+    """xlstm-350m trained on the card at full width and depth (2 layers
+    under ``--quick``): bf16 params, remat, AdamW under cosine_with_warmup,
+    B = 4, S = ``XLSTM_TRAIN_SEQ`` (two loss chunks), ``LEARN_STEPS`` steps
+    on one fixed batch, the sLSTM layers through ``SlstmScan`` (the saving
+    forward and the backward kernel).  Each step must launch the saving
+    forward 2 x and the backward 1 x per sLSTM layer and the serving scan
+    never; none skipped, every loss finite, every param leaf moved (each
+    sLSTM layer's ``r_*`` and ``w_in`` included), the last loss below 0.9 x
+    the first; then one profiled window of 2 steps (device ms by class: the
+    two scan kernels, float32 and 16-bit matmuls, the rest; the dR products
+    timed apart by CUDA events) and the port's loss and grads of the reduced
+    config in float32 on the card and on the CPU: at
+    ``XLSTM_CARD_VS_CPU_SEQ`` positions within ``train_smollm``'s
+    tolerances, at 1024 the loss within them and the grads printed.
+    Returns the launches of the learning steps."""
+    cfg = get_config("xlstm-350m")
+    if quick:
+        cfg = dataclasses.replace(cfg, n_layers=2, stages=(StageSpec(kinds=("mlstm", "slstm"), repeats=1),))
+    n_slstm = sum(spec.repeats * spec.kinds.count("slstm") for spec in cfg.stages)
+    ds = SyntheticLMDataset(cfg.vocab_size, XLSTM_TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    batch = on_device(ds.batch_at(0), dev)
+    opt = make_optimizer("adamw", cosine_with_warmup(TRAIN_LR, LEARN_STEPS // 10 + 1, LEARN_STEPS))
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    p = model_lib.init_model(cfg, seed, device=dev)
+    o = opt.init(p)
+    initial = {k: v.clone() for k, v in flatten(p).items()}
+    n_params = sum(t.numel() for t in flatten(p).values())
+    step = torch.tensor(0, dtype=torch.int32, device=dev)
+    losses, skipped, learn_s, per_step = [], 0, [], []
+    kvmm.reset_counters()
+    kscan.reset_counters()
+    for _ in range(LEARN_STEPS):
+        before = dict(kscan.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, step, m = step_fn(p, o, step, batch)
+        torch.cuda.synchronize()
+        learn_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        skipped += int(m["skipped"])
+        per_step.append({k: n - before[k] for k, n in kscan.LAUNCHES.items()})
+    launches = dict(kvmm.LAUNCHES, **kscan.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = [k for k, v in flatten(p).items() if not torch.equal(v, initial[k])]
+    # each sLSTM layer's slice of its stacked w_in and r_* leaves
+    slstm_moved = {
+        f"{k}[{r}]": not torch.equal(v[r], initial[k][r])
+        for k, v in flatten(p).items() if k.split("/")[-1] in ("w_in", "r_z", "r_i", "r_f", "r_o")
+        for r in range(v.shape[0])
+    }
+    n_leaves = len(initial)
+    del initial
+
+    def two_steps():
+        for _ in range(2):
+            step_fn(p, o, step, batch)  # params and state in place
+
+    profile = retried_window("train_profile_xlstm", lambda: profile_window(
+        "train_profile_xlstm", two_steps, 2, classes={
+            "k5_save": (SCAN_KERNEL,), "k5_bwd": (SCAN_BWD_KERNEL,),
+            "matmul_f32": ("f32f32", "sgemm", "_sss", "tf32"), "matmul_16bit": ("gemm", "nvjet", "xmma", "cutlass"),
+        },
+    ))
+    # the dR products of one sLSTM layer at the train shape, as the backward runs them
+    B, S, H, dh = TRAIN_BATCH, XLSTM_TRAIN_SEQ, cfg.n_heads, xlstm_mod.d_inner_of(cfg) // cfg.n_heads
+    h_prev = torch.randn((B, S, H, dh), device=dev)
+    g = torch.randn((B, S, 4, H, dh), device=dev)
+    dr_ms = cuda_ms(lambda: torch.einsum("bshd,bsghe->ghde", h_prev, g), reps=10)
+    del p, o, h_prev, g
+    torch.cuda.empty_cache()
+    want = {"slstm_scan": 0, "slstm_scan_save": 2 * n_slstm if cfg.remat else n_slstm, "slstm_scan_bwd": n_slstm}
+    line = dict(
+        phase="train_xlstm", arch=cfg.name, n_layers=cfg.n_layers, slstm_layers=n_slstm, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, head_dim=dh, vocab=cfg.vocab_size, params=n_params, param_dtype=cfg.param_dtype,
+        remat=cfg.remat, optimizer="adamw", batch=TRAIN_BATCH, seq=XLSTM_TRAIN_SEQ,
+        loss_chunks=XLSTM_TRAIN_SEQ // model_lib.loss_chunk(XLSTM_TRAIN_SEQ), lr=TRAIN_LR,
+        **step_stats(learn_s[1:], TRAIN_BATCH * XLSTM_TRAIN_SEQ, n_params), cold_first_step_ms=1e3 * learn_s[0],
+        peak_gb=peak_gb, scan_launches_per_step=per_step[-1], scan_launches_per_step_expected=want,
+        launches=launches, learn_steps=LEARN_STEPS, first_loss=losses[0], last_loss=losses[-1], losses=losses,
+        learn_skipped=skipped, leaves_moved=f"{len(moved)}/{n_leaves}",
+        slstm_slices_moved=f"{sum(slstm_moved.values())}/{len(slstm_moved)}",
+        dr_products_ms_per_layer=dr_ms, dr_products_ms_per_step=dr_ms * n_slstm,
+        profile_busy_ms_per_step_by_class=profile.get("busy_ms_per_tick_by_class"),
+        **train_card_vs_cpu(dev, seed, "xlstm-350m", seq=XLSTM_CARD_VS_CPU_SEQ),
+        at_1024={k.replace("card_vs_cpu_", ""): v for k, v in train_card_vs_cpu(dev, seed, "xlstm-350m").items()},
+    )
+    emit(line)
+    require(all(n == want for n in per_step), f"train_xlstm: scan launches a step {per_step}, expected {want}")
+    require(skipped == 0 and all(np.isfinite(losses)), f"train_xlstm: skipped {skipped}, losses {losses}")
+    require(len(moved) == n_leaves, f"train_xlstm: only {len(moved)} of {n_leaves} param leaves moved")
+    require(len(slstm_moved) == 5 * n_slstm and all(slstm_moved.values()),
+            f"train_xlstm: sLSTM layers' w_in / r_* that did not move: {[k for k, v in slstm_moved.items() if not v]}")
+    require(losses[-1] < 0.9 * losses[0], f"train_xlstm: loss {losses[0]} -> {losses[-1]}, not below 0.9x")
+    require(line["card_vs_cpu_loss_rel"] <= CARD_VS_CPU_LOSS_REL, f"train_xlstm: card vs CPU loss {line}")
+    require(line["card_vs_cpu_grad_rel_l2_max"] <= CARD_VS_CPU_GRAD_REL_L2, f"train_xlstm: card vs CPU grads {line}")
+    require(line["at_1024"]["loss_rel"] <= CARD_VS_CPU_LOSS_REL, f"train_xlstm: card vs CPU loss at 1024 {line}")
+    return launches
 
 
 def train_then_serve(cfg, params, batch, dev, seed):
@@ -5281,7 +5573,7 @@ def main() -> int:
               build_dir=os.path.relpath(_build.build_dir())))
 
     t0 = time.perf_counter()
-    cases = kernels_phase(dev, args.quick) + scan_cases(dev, args.quick)
+    cases = kernels_phase(dev, args.quick) + scan_cases(dev, args.quick) + scan_train_cases(dev, args.quick)
     emit(dict(
         phase="kernels", n_cases=len(cases), all_equal=all(c["equal"] for c in cases),
         seconds=time.perf_counter() - t0,
@@ -5444,8 +5736,8 @@ def main() -> int:
     # jamba's rank-0 share of EP4 at full width, one period: mamba blocks
     # beside attention and an MoE FFN with no shared expert
     by_path["serve_jamba"] = serve_jamba(dev, args.seed + 55, args.quick)
-    # the embedding front ends: musicgen-large at full width and depth,
-    # pixtral-12b at full width, 4 of its 40 layers
+    # the embedding front ends: musicgen-large at full width, 24 of its 48
+    # layers, pixtral-12b at full width, 4 of its 40 layers
     by_path["serve_musicgen"] = serve_embed("serve_musicgen", MUSICGEN, dev, args.seed + 56, args.quick)
     by_path["serve_pixtral"] = serve_embed("serve_pixtral", PIXTRAL, dev, args.seed + 57, args.quick)
     # deepseek-v2's MoE FFN at published widths over 4 rank processes
@@ -5467,6 +5759,8 @@ def main() -> int:
     train_launcher()
     # training on the stub's frame embeddings: musicgen-large at full width
     train_musicgen(dev, args.seed + 62, args.quick)
+    # training through the sLSTM scan's backward: xlstm-350m at full width and depth
+    by_path["train_xlstm"] = train_xlstm(dev, args.seed + 63, args.quick)
     # kernel launches only: the planned datapaths run no kernel of ours
     launches = {k: sum(n[k] for n in by_path.values()) for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
     require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")

@@ -4,7 +4,8 @@ on one NVIDIA GPU.
 
 Run from the root of a checkout:  ``python3 scan_clock_split.py``
 
-Builds a copy of ``src/repro_torch/kernels/csrc/slstm_scan.cu`` with counters
+Builds a copy of ``src/repro_torch/kernels/csrc/slstm_scan.cuh`` (and the
+serving entries of ``slstm_scan.cu``) with counters
 inserted at the kernel's phase boundaries (the source is not changed), runs
 it at the scan shapes of the xlstm-350m serving path with the launch plan the
 wrapper would use, and prints one JSON line per case: the device time by
@@ -36,7 +37,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import slstm_scan as kscan  # noqa: E402
 
-SOURCE = os.path.join(_build.CSRC, "slstm_scan.cu")
+HEADER = os.path.join(_build.CSRC, "slstm_scan.cuh")  # the kernels
+SOURCE = os.path.join(_build.CSRC, "slstm_scan.cu")  # the serving entries
 # (B, S, dtype) at H = 4, dh = 512: a decode tick of the slot pool, the
 # longest prompt served, a 256-token prefill
 CASES = [(4, 1, torch.bfloat16), (1, 48, torch.bfloat16), (1, 256, torch.bfloat16),
@@ -67,10 +69,11 @@ PROBES = [
 
 
 def instrumented_source() -> str:
-    src = open(SOURCE).read()
+    src = open(HEADER).read().replace("#pragma once\n", "")
+    src += open(SOURCE).read().replace('#include "slstm_scan.cuh"\n', "")
     for marker, text in PROBES:
         if src.count(marker) != 1:
-            raise RuntimeError(f"marker not found once in {SOURCE}: {marker!r}; update PROBES")
+            raise RuntimeError(f"marker not found once in {HEADER}: {marker!r}; update PROBES")
         src = src.replace(marker, text + marker)
     return src + (
         '\nextern "C" int scan_clocks(long long* out, int n) {\n'

@@ -24,9 +24,9 @@ place and returned.  ``forward``, ``prefill`` and ``decode_step`` serve and
 run under ``torch.no_grad``.  ``loss_fn`` is the training path: it runs
 under autograd when grad mode is on (each layer recomputed in backward under
 ``cfg.remat``, each loss chunk always), and without grad it is a chip's
-evaluation loss under an enabled crossbar mode too.  Configs with sLSTM
-stages do not train (``require_trainable``): on the card the sLSTM scan is
-a kernel without a backward.  The expert banks of an MoE config may hold one
+evaluation loss under an enabled crossbar mode too (sLSTM stages train
+through the scan kernel's hand-written backward, ``kernels.slstm_scan.
+SlstmScan``).  The expert banks of an MoE config may hold one
 rank's share of the experts (``init_model(share=)``); its MoE layers then
 run under ``moe.expert_share(share)``.
 """
@@ -81,16 +81,6 @@ def _require_ported_config(cfg: ModelConfig) -> None:
     for spec in cfg.stages:
         for kind in spec.kinds:
             _check_kind(kind)
-
-
-def require_trainable(cfg: ModelConfig) -> None:
-    """Refuse to train a config with sLSTM stages: on a CUDA tensor the
-    sLSTM recurrence is the scan kernel, whose output has no ``grad_fn``, so
-    every gradient upstream of it would be silently missing."""
-    if any("slstm" in spec.kinds for spec in cfg.stages):
-        raise NotImplementedError(
-            f"{cfg.name}: sLSTM training is not ported yet (the sLSTM scan kernel has no backward)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +423,6 @@ def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
     an enabled crossbar mode is refused; without grad it runs under the
     active crossbar mode, for a chip's evaluation loss."""
     _require_ported_config(cfg)
-    require_trainable(cfg)
     grad = torch.is_grad_enabled()
     if grad and current_crossbar().enabled:
         raise RuntimeError(

@@ -11,7 +11,10 @@ Prefill uses the chunkwise form (a causal decay matrix within a chunk, the
 (B, H, dk, dv) state carried across chunks by a Python loop); decode is the
 one-step update.  Both are plain torch, as the reference leaves them to XLA.
 The sLSTM recurrence runs on ``kernels.slstm_scan.slstm_scan_cuda`` — the
-hand-written scan kernel on the card — in prefill and in decode (S = 1).
+hand-written scan kernel on the card — in prefill and in decode (S = 1);
+under autograd (grad mode on and ``pre`` or a recurrent matrix requiring
+grad) on ``SlstmScan``, the same kernel saving its gates for the
+hand-written backward.
 
 Recurrent state is float32.  With a cache, the new state is written into the
 cache tensors in place (they are views into the stacked slot-pool cache) and
@@ -25,13 +28,27 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.slstm_scan import IGATE_CLIP, slstm_scan_cuda
+from repro_torch.kernels.slstm_scan import IGATE_CLIP, SlstmScan, slstm_scan_cuda
 
 CHUNK = 256
 
 
 def d_inner_of(cfg: ModelConfig) -> int:
     return cfg.xlstm_d_inner or 2 * cfg.d_model
+
+
+def _clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """``torch.clamp(x, lo, hi)`` (one bound) with the gradient of the
+    reference's ``jnp.maximum(x, lo)`` / ``jnp.minimum(x, hi)``: half of it
+    where ``x`` equals the bound (``torch.clamp`` passes all of it).  A bf16
+    gate pre-activation can be exactly ``IGATE_CLIP``."""
+    y = torch.clamp(x, min=lo, max=hi)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return y
+    bound = hi if lo is None else lo
+    inside = x < bound if lo is None else x > bound
+    w = torch.where(x == bound, 0.5, inside.to(x.dtype))
+    return y.detach() + w * (x - x.detach())  # the value of y, the gradient w
 
 
 # ---------------------------------------------------------------------------
@@ -51,10 +68,14 @@ def _mlstm_chunk(q, k, v, log_f, log_i, C0, n0):
     decay_t = torch.exp(L)  # (B, c, H)
     y_inter = torch.einsum("bchd,bhde->bche", qf, C0) * decay_t[..., None]
 
-    # intra-chunk causal decay matrix: D_ts = exp(L_t - L_s + log_i_s), s <= t
+    # intra-chunk causal decay matrix: D_ts = exp(L_t - L_s + log_i_s), s <= t.
+    # Above the diagonal diff grows with t - s (past 88 in a chunk of 256 at
+    # forget gates near 1/2) and exp overflows; masked before exp, so that
+    # backward passes 0 there and not 0 x inf = NaN, as the reference's
+    # where(mask, exp(diff), 0) does past about 128 positions.  The same D.
     diff = L[:, :, None, :] - L[:, None, :, :] + log_i[:, None, :, :]  # (B,t,s,H)
-    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
-    D = torch.where(mask[None, :, :, None], torch.exp(diff), 0.0)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))[None, :, :, None]
+    D = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
     scores = torch.einsum("bthd,bshd->btsh", qf, kf) * D
     y_intra = torch.einsum("btsh,bshe->bthe", scores, vf)
     # normalizer accumulates decay-weighted keys (no q): n_t = sum_s D_ts k_s
@@ -62,7 +83,7 @@ def _mlstm_chunk(q, k, v, log_f, log_i, C0, n0):
 
     # denominator: max(|n_t . q_t|, 1)
     n_tot = n_intra + torch.einsum("bhd,bth->bthd", n0, decay_t)
-    denom = torch.clamp(torch.abs(torch.einsum("bthd,bthd->bth", n_tot, qf)), min=1.0)
+    denom = _clip(torch.abs(torch.einsum("bthd,bthd->bth", n_tot, qf)), lo=1.0)
     y = (y_inter + y_intra) / denom[..., None]
 
     # state update to end of chunk
@@ -86,7 +107,7 @@ def mlstm_block(
 
     q, k, v = (t.reshape(B, S, H, dh) for t in torch.chunk(x @ params["wqkv"], 3, dim=-1))
     gates = (x @ params["w_gates"]).to(torch.float32).reshape(B, S, 2, H)
-    log_i = torch.clamp(gates[:, :, 0], max=IGATE_CLIP)  # log input gate
+    log_i = _clip(gates[:, :, 0], hi=IGATE_CLIP)  # log input gate
     log_f = F.logsigmoid(gates[:, :, 1])  # log forget gate
     o = torch.sigmoid(x @ params["w_ogate"])
 
@@ -152,9 +173,11 @@ def slstm_block(
         n0 = torch.ones((B, H, dh), dtype=torch.float32, device=x.device)
         h0 = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
 
-    h_all, c1, n1, h1 = slstm_scan_cuda(
-        pre, params["r_z"], params["r_i"], params["r_f"], params["r_o"], c0, n0, h0
-    )
+    rs = (params["r_z"], params["r_i"], params["r_f"], params["r_o"])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (pre, *rs)):
+        h_all, c1, n1, h1 = SlstmScan.apply(pre, *rs, c0, n0, h0)
+    else:
+        h_all, c1, n1, h1 = slstm_scan_cuda(pre, *rs, c0, n0, h0)
     if cache is not None:
         cache["c"].copy_(c1)
         cache["n"].copy_(n1)

@@ -52,7 +52,6 @@ def make_train_step(
     (``loss``, ``grad_norm``, ``skipped``).  With ``microbatches`` the
     leading batch dim is split and loss and grads accumulate in float32,
     then are divided, as the reference's scan does."""
-    model_lib.require_trainable(cfg)
     if current_crossbar().enabled:
         raise RuntimeError("make_train_step under an enabled crossbar mode: training runs on the plain matmuls")
     loss_fn = loss_fn or (lambda p, b: model_lib.loss_fn(p, cfg, b))

@@ -235,7 +235,7 @@ def test_credit_launches_adds_the_captured_counts_per_replay():
     for _ in range(3):
         graphs.credit_launches(captured)
     assert tk.LAUNCHES == {"fast": 579, "planes": 0, "noisy": 0}
-    assert tscan.LAUNCHES == {"slstm_scan": 36}
+    assert tscan.LAUNCHES == {"slstm_scan": 36, "slstm_scan_save": 0, "slstm_scan_bwd": 0}
     assert sum(tk.PLAIN_CALLS.values()) + sum(tscan.PLAIN_CALLS.values()) == 0
     tk.reset_counters()
     tscan.reset_counters()

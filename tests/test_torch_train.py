@@ -3,7 +3,8 @@
 JAX package on the same seeded numpy inputs: the loss and every leaf's
 gradient against ``jax.value_and_grad(repro.models.model.loss_fn)`` on tiny
 smollm (a sequence long enough for two loss chunks), gemma2 (softcaps,
-post-norm, a local window) and kimi-style MoE configs; one SGD train step
+post-norm, a local window), kimi-style MoE and xlstm (sLSTM and mLSTM)
+configs; one SGD train step
 against the reference's; Adafactor's update on the MoE model's gradients;
 checkpoints both ways with bfloat16 leaves; and, on the port, the NaN
 skip, microbatches, resume determinism, the straggler monitor and the
@@ -49,11 +50,13 @@ STEP = dict(rtol=1e-5, atol=1e-6)
 # (arch, batch, sequence, masked, reduced() overrides): smollm's 1024
 # positions run the loss in two chunks of 512; gemma2's 24 run past its
 # reduced window of 16, under a mask; kimi at width 128 so that Adafactor
-# factors its (L, E, D, F) banks
+# factors its (L, E, D, F) banks; xlstm through the sLSTM scan's backward
+# (its plain version on the CPU)
 CASES = {
     "smollm-360m": (1, 1024, False, {}),
     "gemma2-9b": (2, 24, True, {}),
     "kimi-k2-1t-a32b": (2, 16, False, {"d_model": 128, "moe_d_ff": 128}),
+    "xlstm-350m": (2, 16, False, {}),
 }
 
 
