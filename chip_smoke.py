@@ -33,7 +33,7 @@ Phases (one JSON line each; any failure is an uncaught exception):
   cpu_vs_card_projections  a reduced chip programmed on the CPU, carried to
                the card through the store: every projection bit-equal
                (ideal, paper-datapath, noisy and planned chips)
-  serve_ideal  smollm-360m at full width, 8 of its 32 layers
+  serve_ideal  smollm-360m at full width, 4 of its 32 layers
                (SERVE_CUT_LAYERS: the script's time limit), served by
                ``ServingEngine`` from an ideal programmed chip (fast kernel),
                incl. a store save -> restore round trip
@@ -49,7 +49,7 @@ Phases (one JSON line each; any failure is an uncaught exception):
   serve_planned_repaired  the planned chip on a device with stuck cells
                (NOISY_DEVICE): ``plan_model(device=...)`` provisions spare
                columns, the repair planner programs them, and every projection
-               serves on the noisy kernel (49 x 38 launches asserted, no planned
+               serves on the noisy kernel (25 x 38 launches asserted, no planned
                call); the repair totals, the repair planning's seconds apart
                from the programming's, and the logits' rel-L2 to the
                plain-matmul model (printed, not gated)
@@ -58,7 +58,7 @@ Phases (one JSON line each; any failure is an uncaught exception):
                the plan's spares; ``recovered_frac`` > 0 asserted; and one
                repaired 960 x 5120 slab programmed on the card and on the CPU
                from the same fields, plan and cells ``torch.equal``
-  lifecycle    smollm-360m at full width, 8 layers, on LIFECYCLE_DEVICE, mid
+  lifecycle    smollm-360m at full width, 4 layers, on LIFECYCLE_DEVICE, mid
                run: age (the captured tick and prefills dropped and captured
                again, 3 replayed ticks bit-equal to eager on the aged chip,
                the next admission's prefill ``torch.equal`` to an eager one,
@@ -74,8 +74,8 @@ Phases (one JSON line each; any failure is an uncaught exception):
   serve_gemma2, serve_minitron, serve_starcoder2  gemma2-9b (post-norm
                blocks, local / global attention, softcaps, a scaled
                embedding), minitron-4b (untied head) and starcoder2-3b at full
-               width, 8 layers each (SERVE_CUT_LAYERS), from ideal chips the
-               engine programs: 49 fast-kernel launches a forward (6 a layer
+               width, 4 layers each (SERVE_CUT_LAYERS), from ideal chips the
+               engine programs: 25 fast-kernel launches a forward (6 a layer
                + the head),
                asserted, and no other kernel; the logits within each config's
                rel-L2 gate of the plain-matmul model (``REL_L2_MAX``); a store
@@ -164,8 +164,8 @@ Phases (one JSON line each; any failure is an uncaught exception):
                process programs it, serves a decode (4 x 1) and a prefill
                (1 x 32) input and saves the 15.3 GB store with the EP
                sharding of a (1, 4) mesh recorded; then 4 rank processes on
-               the card (gloo, every CUDA operand staged through host
-               memory) restore their slices with ``mesh=`` and run EP (decode,
+               the card (gloo; every CUDA operand through the card's
+               mailboxes, none staged through host memory) restore their slices with ``mesh=`` and run EP (decode,
                prefill) and all-to-all (prefill) on a (1, 4) mesh, expert-TP
                (decode) on a (2, 2) mesh from the same store laid out anew;
                each body on the chip (float32 and bf16 activations) and
@@ -207,8 +207,8 @@ Phases (one JSON line each; any failure is an uncaught exception):
                ranks' bank slices outside the chip gate, 133 / 253 K1
                launches a forward of the engine's serving run on each rank
                (the kernels line counts that run; the teacher-forced and
-               planted runs' launches are printed apart), the staged
-               collectives
+               planted runs' launches are printed apart), the
+               collectives (none staged through host memory)
   serve_launcher  ``python -m repro_torch.launch.serve --arch
                deepseek-v2-236b --reduced --crossbar`` as a user runs it:
                exit 0, its lines parsed
@@ -235,7 +235,7 @@ Phases (one JSON line each; any failure is an uncaught exception):
                seconds and pool bytes
   The traffic tier, after tick_profile_ideal on the same chip (xlstm's after
   tick_profile_xlstm):
-  serve_traffic_exact  smollm-360m at full width, 8 layers, from an ideal
+  serve_traffic_exact  smollm-360m at full width, 4 layers, from an ideal
                chip (max_batch 4, max_seq 256): the short_long_full mix's 32
                requests submitted up front through the slot-loop engine, then
                through ``ContinuousBatchingScheduler`` on its runner (default
@@ -285,7 +285,7 @@ Phases (one JSON line each; any failure is an uncaught exception):
                loss chunks): (a) 6 uninterrupted ``TrainLoop`` steps against
                3 steps with a checkpoint at 3, fresh params and state restored
                by ``maybe_resume`` and 3 more: every param and optimizer-state
-               leaf ``torch.equal``; (b) 30 steps on one fixed batch: none
+               leaf ``torch.equal``; (b) 20 steps on one fixed batch: none
                skipped, every loss finite, every param leaf moved, the last
                loss below 0.9 x the first; (c) one poisoned step (loss x NaN):
                skipped, params and state ``torch.equal`` to before; (d) the
@@ -315,7 +315,7 @@ Phases (one JSON line each; any failure is an uncaught exception):
   train_xlstm  xlstm-350m trained at full width and depth (24 layers, 12 of
                them sLSTM; bf16, remat, AdamW, B = 4, S = 1024) through
                ``SlstmScan``: per step 24 launches of the scan's saving
-               forward and 12 of its backward kernel asserted, 30 steps on
+               forward and 12 of its backward kernel asserted, 20 steps on
                one fixed batch (none skipped, every loss finite, every leaf
                and every sLSTM layer's w_in / r_* moved, the last loss below
                0.9 x the first), one profiled window of 2 steps
@@ -324,6 +324,17 @@ Phases (one JSON line each; any failure is an uncaught exception):
                reduced config's loss and grads in float32 on the card and on
                the CPU at 256 positions (at 1024 the loss, the grads printed:
                the gradient jumps where n_t crosses 1, xlstm_grad_spread.py)
+  train_mesh   training over a (data 2, model 2) mesh of 4 gloo rank
+               processes sharing the card (one spawn): smollm-360m whole and
+               gemma2-9b at 2 of 42 layers under ``tp``, xlstm-350m at 4
+               layers under ``pure_dp``, each rank holding its specs' blocks
+               of params and AdamW moments (asserted beside one device's
+               bytes); step 1 against one device on the card in bf16 (loss
+               and every gradient leaf, each within the larger of 1e-2 and
+               twice its own bf16-vs-float32 distance on one device) and
+               float32 (loss and every gradient leaf); bf16
+               steps none skipped, ms per rank, collective bytes by axis;
+               xlstm's K5 saving and backward launches a step on every rank
 
 Needs one CUDA device; exits non-zero without one.  ``--quick`` (not used by
 the default run) cuts the kernel cases and the model depth for a fast check
@@ -410,9 +421,11 @@ LIFECYCLE_AGE_S = 1e7
 # families run at full width cut to this many layers: at full depth, beside
 # the embedding front ends' phases, the script took 1185-1256 s on an NVIDIA
 # H100 80GB HBM3 at 700 W (PERF.md §6), past the 1200 s it must finish
-# in.  Training stays at full depth: at 8 layers its 30 steps memorise the
-# fixed batch, and train_then_serve's loss check cannot read a loss near 0.
-SERVE_CUT_LAYERS = 8
+# in; at 8 layers, with the training mesh beside them, 1172.6 s on a slow
+# host (PERF.md §6).  Training stays at full depth: at 8 layers its
+# steps memorise the fixed batch, and train_then_serve's loss check cannot
+# read a loss near 0.
+SERVE_CUT_LAYERS = 4
 # the traffic phases (smollm-360m from an ideal chip, xlstm-350m): a pool of
 # 4 slots of 256 tokens; serve_traffic's block pool holds 40 blocks of 16
 # tokens against the 64 a dense pool would, so the mix below preempts
@@ -740,7 +753,7 @@ XLSTM_REL_L2_MAX = 0.1
 # steps // 10 + 1, steps), as the launcher sets it
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 1024, 1e-3
 RESUME_STEPS = 6  # the uninterrupted run; the resumed one checkpoints at half
-LEARN_STEPS = 30  # on one fixed batch: the last loss below 0.9 x the first
+LEARN_STEPS = 20  # on one fixed batch: the last loss below 0.9 x the first
 # train_xlstm: xlstm-350m at full width and depth (12 sLSTM layers), B x S =
 # TRAIN_BATCH x XLSTM_TRAIN_SEQ, LEARN_STEPS steps; per step, with remat, each
 # sLSTM layer's saving forward runs twice (forward, recompute) and its
@@ -762,6 +775,36 @@ CARD_VS_CPU_GRAD_REL_L2 = 1e-4
 # model's (train_then_serve): readings 1.3e-6 and 1.3e-4 (quantisation,
 # averaged over 4096 tokens); a wrong K1 above 256 rows moves it by far more
 TRAINED_LOSS_REL_MAX = 1e-2
+# train_mesh: training over one (data 2, model 2) mesh of 4 gloo ranks that
+# share the card: (case, arch, layers (None: full depth), steps).  smollm and
+# gemma2 under the ``tp`` layout (heads, FFN units and the vocabulary over
+# "model", the batch over "data"), xlstm under ``pure_dp`` (the batch over
+# both axes; its sLSTM blocks through K5's saving forward and backward).
+# B x S = TRAIN_BATCH x TRAIN_SEQ, AdamW under cosine_with_warmup
+MESH_SHAPE = (2, 2)
+MESH_CASES = (
+    ("smollm", "smollm-360m", None, 4),
+    ("gemma2", "gemma2-9b", 2, 3),
+    ("xlstm", "xlstm-350m", 4, 3),
+)
+# step-1 loss against one device on the card: the reference's own bar for a
+# DP+TP loss (tests/test_distributed.py: 2e-3 x max(1, |loss|)), in bf16 and
+# in float32.  The gradients are held in float32 (the same params cast, TF32
+# off), every gathered step-1 leaf within MESH_GRAD_REL_L2[case] (rel-L2) of
+# one device's: reduction orders only, the bar of the card-vs-CPU grads
+# (CARD_VS_CPU_GRAD_REL_L2); xlstm's sLSTM gradient jumps where n_t crosses
+# 1 (xlstm_grad_spread.py: up to 1.9e-3 from a 1e-7 change of the params).
+# In bf16 no split of a sum can keep one device's roundings: each bf16
+# step-1 gradient leaf against one device's is printed beside that leaf's own
+# bf16 distance from float32 on one device (``bf16_vs_f32_one_device``), and
+# held to 1e-2 where that distance allows, else to MESH_BF16_NOISE_X times
+# it, leaf by leaf (mesh_bf16_noise.py, CPU, 6 layers at smollm's width: the
+# mesh 1.5e-2 from one device where one device's bf16 is 2.0e-2 from its
+# float32)
+MESH_LOSS_REL = 2e-3
+MESH_GRAD_REL_L2 = {"smollm": 1e-4, "gemma2": 1e-4, "xlstm": 1e-2}
+MESH_BF16_GRAD_REL_L2 = 1e-2
+MESH_BF16_NOISE_X = 2.0
 CSRC = "src/repro_torch/kernels/csrc/crossbar_vmm.cu"
 BIT_IDENTICAL = "bit-identical (torch.equal)"
 SCAN_TOLERANCE = (
@@ -2916,6 +2959,7 @@ def deepseek_rank(rank, store_dir, seed, t_spawn, device):
     sound slice)."""
     up_s = time.time() - t_spawn
     dev = torch.device(device)
+    torch.cuda.set_device(dev)  # before the meshes: the ranks share its mailboxes
     torch.backends.cuda.matmul.allow_tf32 = False
     meshes = {(1, 4): make_local_mesh(1, 4), (2, 2): make_local_mesh(2, 2)}
     whole = deepseek_params(deepseek_config("ep_only"), seed, dev)
@@ -3137,6 +3181,7 @@ def moe_ranks_deepseek(dev, seed):
     )
     emit(line)
     require(not fails, f"moe_ranks_deepseek: {fails}")
+    require(not line["staged_through_host"], f"moe_ranks_deepseek: staged through host {line['staged_through_host']}")
     launches = {k: 0 for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
     launches["fast"] = total
     return launches
@@ -3490,6 +3535,7 @@ def serve_deepseek_rank(rank, workdir, seed, t_spawn, device):
     swapped (a planted fault)."""
     up_s = time.time() - t_spawn
     dev = torch.device(device)
+    torch.cuda.set_device(dev)  # before the meshes: the ranks share its mailboxes
     torch.backends.cuda.matmul.allow_tf32 = False
     meshes = {shape: make_local_mesh(*shape) for _, shape, _ in DEEPSEEK_MESHES}
     out = dict(spawn_seconds=up_s, meshes={})
@@ -3675,6 +3721,7 @@ def serve_deepseek(dev, seed):
     )
     emit(line)
     require(not fails, f"serve_deepseek_ranks: {fails}")
+    require(not line["staged_through_host"], f"serve_deepseek_ranks: staged through host {line['staged_through_host']}")
     launches = {k: 0 for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
     launches["fast"] = total
     return one["launches"], launches
@@ -5142,7 +5189,7 @@ def train_smollm(cfg, dev, seed):
     half of them with a checkpoint there, fresh params and state restored by
     ``maybe_resume`` and the other half: every param and state leaf
     ``torch.equal``; (b) learning:
-    30 steps on one fixed batch, none skipped, every loss finite, every
+    ``LEARN_STEPS`` steps on one fixed batch, none skipped, every loss finite, every
     param leaf moved, the last loss below 0.9 x the first; (c) one poisoned
     step (loss x NaN): skipped, params and state ``torch.equal`` to before;
     (d) the port's loss and grads of the reduced config in float32 on the
@@ -5469,6 +5516,320 @@ def train_xlstm(dev, seed, quick):
     return launches
 
 
+def mesh_config(arch, layers, quick):
+    cfg = get_config(arch)
+    if quick:
+        layers = len(cfg.stages[0].kinds) * (2 if arch == "xlstm-350m" else 1)
+    return cfg if layers is None else depth_config(cfg, layers)
+
+
+def train_mesh_batch(cfg, seed, step, dev):
+    """Step ``step``'s whole global batch (process 0 of 1: a rank's step
+    takes its rows)."""
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed, process_index=0, process_count=1)
+    return on_device(ds.batch_at(step), dev)
+
+
+def _grad_path(directory, case, dtype, key):
+    return os.path.join(directory, case, dtype, key.replace("/", "__") + ".pt")
+
+
+def _sq_sums(a, ref, chunk=1 << 26):
+    """(sum (a - ref)^2, sum ref^2) in float32, a chunk of elements at a
+    time (a vocabulary table's float32 copies would not fit beside the
+    ranks)."""
+    num = den = 0.0
+    for x, y in zip(a.reshape(-1).split(chunk), ref.reshape(-1).split(chunk)):
+        x, y = x.to(torch.float32), y.to(torch.float32)
+        num += float(torch.sum(torch.square(x - y)))
+        den += float(torch.sum(torch.square(y)))
+    return num, den
+
+
+def _rel_l2(a, ref) -> float:
+    num, den = _sq_sums(a, ref)
+    return math.sqrt(num / max(den, 1e-60))
+
+
+def train_mesh_reference(case, cfg, dev, seed, directory):
+    """The one-device step 1 on the card (the parent's), in bf16 and on the
+    same params cast to float32: both losses, both gradients saved leaf by
+    leaf for rank 0, bf16's distance from float32 leaf by leaf, and the
+    one-device bytes of params and AdamW moments.  Freed before it
+    returns."""
+    batch = train_mesh_batch(cfg, seed, 0, dev)
+    params = model_lib.init_model(cfg, seed, device=dev)
+    numel = sum(t.numel() for t in flatten(params).values())
+    out = dict(params=numel, param_bytes=_tree_bytes(params), moment_bytes=2 * 4 * numel, loss={}, grad_seconds={})
+    grads = {}
+    for dtype in ("bfloat16", "float32"):
+        p = params if dtype == "bfloat16" else tree_map(lambda t: t.to(torch.float32), params)
+        c = dataclasses.replace(cfg, param_dtype=dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(lambda q, b: model_lib.loss_fn(q, c, b), p, batch)
+        torch.cuda.synchronize()
+        out["grad_seconds"][dtype], out["loss"][dtype] = time.perf_counter() - t0, float(loss)
+        os.makedirs(os.path.join(directory, case, dtype))
+        for k, v in flatten(g).items():
+            torch.save(v.cpu(), _grad_path(directory, case, dtype, k))
+        grads[dtype] = flatten(g)
+        del p, g, loss
+    out["bf16_vs_f32_by_leaf"] = {k: _rel_l2(v, grads["float32"][k]) for k, v in grads["bfloat16"].items()}
+    del params, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+
+
+def _share_bytes(specs, shapes, mesh) -> int:
+    """The bytes of a rank's blocks of a tree of ``shapes`` by ``specs``."""
+    from repro_torch.launch import sharding
+    shapes = flatten(shapes)
+    return sum(
+        math.prod(sharding.local_shape(shapes[k].shape, s, mesh)) * shapes[k].element_size()
+        for k, s in flatten(specs).items()
+    )
+
+
+def _held_to_one_device(grads, specs, mesh, directory, case, dtype):
+    """{leaf: rel-L2} of the step's gradients to one device's of ``dtype``:
+    each rank holds its blocks to the same blocks of the saved leaves (read
+    through ``mmap``), and the squared sums are added over the axes each
+    leaf is split over; no leaf is gathered."""
+    from repro_torch.launch import sharding
+
+    out, flat_specs = {}, flatten(specs)
+    for k, g in flatten(grads).items():
+        spec = flat_specs[k]
+        ref = torch.load(_grad_path(directory, case, dtype, k), mmap=True)
+        sums = torch.tensor(_sq_sums(g, sharding.local_block(ref, spec, mesh).to(g.device)), dtype=torch.float64)
+        if sharding.spec_axes(spec):
+            sums = mesh.psum(sums, sharding.spec_axes(spec))
+        out[k] = math.sqrt(float(sums[0]) / max(float(sums[1]), 1e-60))
+    return out
+
+
+def mailboxes_vs_staged(mesh, dev):
+    """Each collective through the card's mailboxes against the same one
+    staged through host memory (the mesh with its mailboxes set aside), on
+    integer-valued float32 and bf16 operands of 8 MB: {case: equal}."""
+    gen = torch.Generator(device=dev).manual_seed(mesh.rank)
+    out = {}
+    for axis in ("data", "model", ("data", "model")):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randint(-8, 8, (4, (8 << 20) // 16), generator=gen, device=dev).to(dtype)
+            ops = {
+                "psum": lambda: mesh.psum(x, axis), "pmax": lambda: mesh.pmax(x, axis),
+                "all_gather": lambda: mesh.all_gather(x, axis, 0),
+                "psum_scatter": lambda: mesh.psum_scatter(x, axis, 0), "all_to_all": lambda: mesh.all_to_all(x, axis),
+            }
+            for name, op in ops.items():
+                card = op()
+                box, mesh._card = mesh._card, None
+                staged = op()
+                mesh._card = box
+                out[f"{name} {axis} {str(dtype).replace('torch.', '')}"] = bool(torch.equal(card, staged))
+    mesh.collectives.clear()
+    return out
+
+
+def train_mesh_rank(rank, directory, seed, quick, t_spawn, device):
+    """One rank of the (2, 2) mesh on the card: for each case, the whole
+    params drawn as the parent drew them and the rank's blocks kept by
+    ``train_specs``; step 1 in float32 (the same params cast, SGD), its
+    gathered gradients held to one device's on rank 0; then ``steps`` bf16
+    AdamW steps (step 1's gradients gathered too), each timed on the host
+    clock, with the collectives' bytes by axis and the scan's launches;
+    resident bytes of params and moments beside the specs' share."""
+    from repro_torch.launch import sharding
+
+    up_s = time.time() - t_spawn
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_local_mesh(*MESH_SHAPE)
+    out = dict(spawn_seconds=up_s, coords=mesh.coords, cases={}, mailboxes=mesh._card is not None,
+               mailboxes_vs_staged=mailboxes_vs_staged(mesh, dev))
+    kvmm.reset_counters()
+    kscan.reset_counters()
+    keep, keeping_next = {}, [False]
+
+    def keeping(opt):
+        """``opt``, keeping a step's gradients where ``keeping_next`` asks
+        (the step does not touch them after the update); no ``opt``: an
+        update that applies nothing."""
+        def update(grads, state, params, step, ok=None, norm=None):
+            if keeping_next[0]:
+                keep.update(grads)
+                keeping_next[0] = False
+            return (params, state) if opt is None else opt.update(grads, state, params, step, ok=ok, norm=norm)
+        return Optimizer(lambda p: {} if opt is None else opt.init(p), update)
+
+    for case, arch, layers, steps in MESH_CASES:
+        cfg = mesh_config(arch, layers, quick)
+        t_case = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        whole = model_lib.init_model(cfg, seed, device=dev)
+        specs = sharding.train_specs(cfg, whole, "adamw", mesh)
+        shapes = sharding.abstract(whole)
+        p = sharding.local_slice(whole, specs["params"], mesh)
+        del whole
+        torch.cuda.empty_cache()
+        # float32: the gradients held (a step that applies nothing)
+        c32 = dataclasses.replace(cfg, param_dtype="float32")
+        p32 = tree_map(lambda t: t.to(torch.float32), p)
+        step32 = make_train_step(c32, keeping(None), mesh=mesh, specs=specs["params"])
+        keeping_next[0] = True
+        _, _, _, m32 = step32(p32, {}, torch.tensor(0, dtype=torch.int32, device=dev), train_mesh_batch(cfg, seed, 0, dev))
+        errs32 = _held_to_one_device(keep, specs["params"], mesh, directory, case, "float32")
+        loss32 = float(m32["loss"])
+        keep.clear()
+        del p32, step32, m32
+        gc.collect()
+        torch.cuda.empty_cache()
+        # bf16 training
+        opt = make_optimizer("adamw", cosine_with_warmup(TRAIN_LR, steps // 10 + 1, steps))
+        o = opt.init(p)
+        held = dict(params=_tree_bytes(p), moments=_tree_bytes(o),
+                    params_share=_share_bytes(specs["params"], shapes, mesh),
+                    moments_share=_share_bytes(specs["opt"], sharding.abstract(opt.init(shapes)), mesh))
+        step_fn = make_train_step(cfg, keeping(opt), mesh=mesh, specs=specs["params"])
+        step = torch.tensor(0, dtype=torch.int32, device=dev)
+        losses, skipped, step_s, traffic, scans, errs16 = [], [], [], [], [], {}
+        for i in range(steps):
+            batch = train_mesh_batch(cfg, seed, i, dev)
+            before_scan = dict(kscan.LAUNCHES)
+            mesh.collectives.clear()
+            keeping_next[0] = i == 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, step, m = step_fn(p, o, step, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            skipped.append(int(m["skipped"]))
+            traffic.append({a: dict(r) for a, r in mesh.traffic_by_axis.items()})
+            scans.append({k: n - before_scan[k] for k, n in kscan.LAUNCHES.items()})
+            if i == 0:  # step 1's bf16 gradients against one device's (outside the timed step)
+                errs16 = _held_to_one_device(keep, specs["params"], mesh, directory, case, "bfloat16")
+                keep.clear()
+        if rank == 0:
+            emit(dict(train_mesh_rank0=case, seconds=time.perf_counter() - t_case,
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9, step_seconds=step_s))
+        out["cases"][case] = dict(
+            n_layers=cfg.n_layers, layout=cfg.layout, loss_f32=loss32, grad_rel_l2_f32=errs32,
+            grad_rel_l2_bf16=errs16, losses=losses, skipped=skipped, step_seconds=step_s,
+            traffic_by_axis=traffic, scan_launches=scans, held_bytes=held,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, seconds=time.perf_counter() - t_case,
+        )
+        del p, o
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(kvmm.LAUNCHES, **kscan.LAUNCHES)
+    return out
+
+
+def _worst(errs):
+    return dict(max=max(errs.values()), worst_leaf=max(errs, key=errs.get), median=statistics.median(errs.values()),
+                leaves=len(errs)) if errs else None
+
+
+def train_mesh(dev, seed, quick):
+    """smollm-360m (full depth) and gemma2-9b (2 of 42 layers) at full width
+    over a (data 2, model 2) mesh under ``tp``, xlstm-350m (4 layers, 2 of
+    them sLSTM) at full width under ``pure_dp`` over the same 4 ranks: one
+    spawn of 4 gloo rank processes on ``cuda:0`` for the three, each case's
+    one-device step first run here and freed.  Held: the step-1 loss in
+    bf16 and in float32 within ``MESH_LOSS_REL`` x max(1, |loss|) of one
+    device's on every rank, every float32 step-1 gradient leaf within
+    ``MESH_GRAD_REL_L2`` of one device's (block by block, summed over the
+    ranks), every bf16 leaf within ``MESH_BF16_GRAD_REL_L2`` or
+    ``MESH_BF16_NOISE_X`` times the same leaf's bf16 distance from float32
+    on one device, whichever is larger, no bf16 step skipped, each rank's resident
+    params and moments equal to its specs' share, and on every xlstm rank
+    K5's saving forward twice and its backward once a sLSTM layer a step.
+    Returns the ranks' launches."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        refs = {}
+        for case, arch, layers, _ in MESH_CASES:
+            refs[case] = train_mesh_reference(case, mesh_config(arch, layers, quick), dev, seed, d)
+        gc.collect()
+        torch.cuda.empty_cache()  # the card to the ranks
+        t_spawn = time.perf_counter()
+        ranks = run_ranks(train_mesh_rank, MESH_SHAPE[0] * MESH_SHAPE[1], (d, seed, quick, time.time(), str(dev)),
+                          timeout_s=900)
+        ranks_s = time.perf_counter() - t_spawn
+    for case, arch, layers, steps in MESH_CASES:
+        cfg = mesh_config(arch, layers, quick)
+        ref, rk = refs[case], [r["cases"][case] for r in ranks]
+        first = [r["losses"][0] for r in rk]
+        bar = {dt: MESH_LOSS_REL * max(1.0, abs(ref["loss"][dt])) for dt in ref["loss"]}
+        loss_err = dict(bfloat16=max(abs(x - ref["loss"]["bfloat16"]) for x in first),
+                        float32=max(abs(r["loss_f32"] - ref["loss"]["float32"]) for r in rk))
+        n_slstm = sum(spec.repeats * spec.kinds.count("slstm") for spec in cfg.stages)
+        want_scan = {"slstm_scan": 0, "slstm_scan_save": 2 * n_slstm if cfg.remat else n_slstm,
+                     "slstm_scan_bwd": n_slstm}
+        g32, g16 = _worst(rk[0]["grad_rel_l2_f32"]), _worst(rk[0]["grad_rel_l2_bf16"])
+        own16 = ref["bf16_vs_f32_by_leaf"]
+        bf16_by_leaf = {k: dict(mesh=e, one_device_bf16_vs_f32=own16[k],
+                                bar=max(MESH_BF16_GRAD_REL_L2, MESH_BF16_NOISE_X * own16[k]))
+                        for k, e in rk[0]["grad_rel_l2_bf16"].items()}
+        over16 = {k: v for k, v in bf16_by_leaf.items() if not v["mesh"] <= v["bar"]}
+        line = dict(
+            phase="train_mesh", case=case, arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+            vocab=cfg.vocab_size, layout=cfg.layout, mesh=dict(data=MESH_SHAPE[0], model=MESH_SHAPE[1]),
+            ranks=len(ranks), device=f"{dev} (shared)",
+            transport="the card's mailboxes (CUDA IPC), a shared-memory barrier around each round",
+            mailboxes_by_rank=[r["mailboxes"] for r in ranks],
+            mailbox_collectives_equal_staged=all(all(r["mailboxes_vs_staged"].values()) for r in ranks),
+            params=ref["params"], param_dtype=cfg.param_dtype, remat=cfg.remat, optimizer="adamw",
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps,
+            one_device_loss=ref["loss"], one_device_grad_seconds=ref["grad_seconds"],
+            step1_loss_bf16_by_rank=first, step1_loss_f32_by_rank=[r["loss_f32"] for r in rk],
+            step1_loss_abs_err=loss_err, step1_loss_bar=bar,
+            grad_f32=g32, grad_f32_bar=MESH_GRAD_REL_L2[case], grad_bf16=g16,
+            bf16_vs_f32_one_device=_worst(own16), grad_bf16_by_leaf=bf16_by_leaf,
+            losses_rank0=rk[0]["losses"], skipped_by_rank=[r["skipped"] for r in rk],
+            step_ms_p50_by_rank=[statistics.median(1e3 * x for x in r["step_seconds"][1:]) for r in rk],
+            first_step_ms_by_rank=[1e3 * r["step_seconds"][0] for r in rk],
+            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (statistics.median(rk[0]["step_seconds"][1:])),
+            collectives_per_step_by_axis_rank0=rk[0]["traffic_by_axis"][-1],
+            held_bytes_by_rank=[r["held_bytes"] for r in rk],
+            one_device_bytes=dict(params=ref["param_bytes"], moments=ref["moment_bytes"]),
+            peak_gb_by_rank=[r["peak_gb"] for r in rk], rank_seconds=[r["seconds"] for r in rk],
+            scan_launches_per_step_rank0=rk[0]["scan_launches"][-1],
+            spawn_seconds=[r["spawn_seconds"] for r in ranks], ranks_seconds=ranks_s,
+        )
+        emit(line)
+        require(all(line["mailboxes_by_rank"]), f"train_mesh: a rank without the card's mailboxes {line['mailboxes_by_rank']}")
+        require(line["mailbox_collectives_equal_staged"],
+                f"train_mesh: mailbox collectives off the staged ones {[r['mailboxes_vs_staged'] for r in ranks]}")
+        for dt in ("bfloat16", "float32"):
+            require(loss_err[dt] <= bar[dt], f"train_mesh {case}: {dt} step-1 loss off one device's: {line}")
+        require(g32["max"] <= MESH_GRAD_REL_L2[case],
+                f"train_mesh {case}: float32 gradient {g32['worst_leaf']} rel-L2 {g32['max']}")
+        require(not over16, f"train_mesh {case}: bf16 gradients over their bars {over16}")
+        require(all(max(r["skipped"]) == 0 for r in rk), f"train_mesh {case}: skipped steps {line['skipped_by_rank']}")
+        require(all(all(np.isfinite(r["losses"])) for r in rk), f"train_mesh {case}: losses {line['losses_rank0']}")
+        require(all(r["held_bytes"]["params"] == r["held_bytes"]["params_share"]
+                    and r["held_bytes"]["moments"] == r["held_bytes"]["moments_share"] for r in rk),
+                f"train_mesh {case}: resident bytes off the specs' share {line['held_bytes_by_rank']}")
+        if cfg.layout == "tp":
+            require(all(r["held_bytes"]["params"] < ref["param_bytes"] for r in rk),
+                    f"train_mesh {case}: a rank holds the whole params")
+        if n_slstm:
+            require(all(s == want_scan for r in rk for s in r["scan_launches"]),
+                    f"train_mesh {case}: scan launches a step {[r['scan_launches'] for r in rk]}, expected {want_scan}")
+    emit(dict(phase="train_mesh_done", seconds=time.perf_counter() - t_phase))
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
 def train_then_serve(cfg, params, batch, dev, seed):
     """The trained params programmed onto an ideal chip and served (6 x 16,
     max_batch 4, max_seq 256) through K1: one launch a projection of every
@@ -5761,6 +6122,9 @@ def main() -> int:
     train_musicgen(dev, args.seed + 62, args.quick)
     # training through the sLSTM scan's backward: xlstm-350m at full width and depth
     by_path["train_xlstm"] = train_xlstm(dev, args.seed + 63, args.quick)
+    # training over a (data 2, model 2) mesh of 4 rank processes on the card:
+    # smollm-360m and gemma2-9b tensor- and data-parallel, xlstm-350m pure DP
+    by_path["train_mesh"] = train_mesh(dev, args.seed + 64, args.quick)
     # kernel launches only: the planned datapaths run no kernel of ours
     launches = {k: sum(n[k] for n in by_path.values()) for k in (*kvmm.LAUNCHES, *kscan.LAUNCHES)}
     require(all(v > 0 for v in launches.values()), f"a kernel never ran on the main path: {launches}")

@@ -449,6 +449,12 @@ class CheckpointManager:
         t0 = time.perf_counter()
         host = {key: _host_leaf(leaf) for key, leaf in flatten(tree).items()}
         self.snapshot_seconds = time.perf_counter() - t0
+        self.write_async(step, host, metadata)
+
+    def write_async(self, step: int, host: Dict[str, Tuple[np.ndarray, str]], metadata: Optional[dict] = None):
+        """Write a snapshot taken already ({path: ``_host_leaf``}) in the
+        background."""
+        self.wait()
         self._pending = self._pool.submit(self._write, step, host, metadata)
 
     def _write(self, step, host, metadata):

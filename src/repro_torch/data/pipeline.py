@@ -132,12 +132,20 @@ class EmbeddingStubDataset:
             step += 1
 
 
-def make_dataset(cfg, seq_len: int, global_batch: int, seed: int = 0, path: Optional[str] = None):
+def make_dataset(
+    cfg, seq_len: int, global_batch: int, seed: int = 0, path: Optional[str] = None,
+    process_index: Optional[int] = None, process_count: Optional[int] = None,
+):
+    """The config's dataset.  ``process_index`` / ``process_count`` pick the
+    host slice (default: this process's rank and world size); a rank process
+    of a mesh passes 0 / 1 for the whole global batch, of which the mesh
+    train step takes the rank's rows."""
+    where = dict(process_index=process_index, process_count=process_count)
     if cfg.frontend == "embed":
-        return EmbeddingStubDataset(cfg.d_model, cfg.vocab_size, seq_len, global_batch, seed)
+        return EmbeddingStubDataset(cfg.d_model, cfg.vocab_size, seq_len, global_batch, seed, **where)
     if path:
-        return MemmapLMDataset(path, seq_len, global_batch, seed)
-    return SyntheticLMDataset(cfg.vocab_size, seq_len, global_batch, seed)
+        return MemmapLMDataset(path, seq_len, global_batch, seed, **where)
+    return SyntheticLMDataset(cfg.vocab_size, seq_len, global_batch, seed, **where)
 
 
 def prefetch(it: Iterator, size: int = 2) -> Iterator:

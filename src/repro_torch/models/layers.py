@@ -155,20 +155,23 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
-def mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    # wi/wo route through crossbar_linear so an enabled CrossbarMode covers
-    # the FFN; with the mode disabled this is a plain matmul
-    h = crossbar_linear(x, params["wi"], name="wi")
+def mlp_act(h: torch.Tensor, kind: str) -> torch.Tensor:
+    """The FFN's activation of ``x @ wi`` (a GLU's ``[u | g]`` halves)."""
     if kind in ("swiglu", "geglu"):
         u, g = torch.chunk(h, 2, dim=-1)
         act = g * torch.sigmoid(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
-        h = u * act
-    elif kind == "gelu":
-        h = F.gelu(h, approximate="tanh")
-    elif kind == "relu2":
-        h = torch.square(torch.relu(h))
-    else:
-        raise ValueError(kind)
+        return u * act
+    if kind == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if kind == "relu2":
+        return torch.square(torch.relu(h))
+    raise ValueError(kind)
+
+
+def mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    # wi/wo route through crossbar_linear so an enabled CrossbarMode covers
+    # the FFN; with the mode disabled this is a plain matmul
+    h = mlp_act(crossbar_linear(x, params["wi"], name="wi"), kind)
     return crossbar_linear(h, params["wo"], name="wo")
 
 

@@ -5,6 +5,7 @@ end).
 
 Entry points:
   * ``init_model(cfg, seed, device, dtype, share)`` -> params (nested dicts)
+  * ``param_axes(cfg)`` -> the params' logical axes, leaf by leaf
   * ``forward(params, cfg, inp)`` -> logits (B, S, V)
   * ``loss_fn(params, cfg, batch)`` -> next-token cross entropy (training)
   * ``init_cache(cfg, B, S, dtype, device)`` -> cache
@@ -26,13 +27,16 @@ under autograd when grad mode is on (each layer recomputed in backward under
 ``cfg.remat``, each loss chunk always), and without grad it is a chip's
 evaluation loss under an enabled crossbar mode too (sLSTM stages train
 through the scan kernel's hand-written backward, ``kernels.slstm_scan.
-SlstmScan``).  The expert banks of an MoE config may hold one
+SlstmScan``).  Under a ``parallel.Plan`` (the mesh train step) the
+params are a rank's blocks: the loss is the global masked mean, and under
+the ``tp`` layout attention, the dense FFN, the embedding and the head run
+tensor-parallel (``models.parallel``).  The expert banks of an MoE config may hold one
 rank's share of the experts (``init_model(share=)``); its MoE layers then
 run under ``moe.expert_share(share)``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -41,6 +45,7 @@ from repro_torch.configs.base import ModelConfig, StageSpec
 from repro_torch.device.programmed import _push_bind_map, name_scope
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import current_crossbar, embed, lm_head, mlp, rms_norm
@@ -194,6 +199,73 @@ def init_model(
     return params
 
 
+def _mixer_axes(cfg: ModelConfig, kind: str) -> Dict[str, Tuple]:
+    """One layer's mixer leaves and their logical axes (the reference's
+    ``init_attention``, ``init_mamba``, ``init_mlstm``, ``init_slstm``)."""
+    if kind == "mlstm":
+        return {"wqkv": ("embed", "d_inner"), "w_gates": ("embed", None), "w_ogate": ("embed", "d_inner"),
+                "out_proj": ("d_inner", "embed")}
+    if kind == "slstm":
+        out = {"w_in": ("embed", "d_inner"), "out_proj": ("d_inner", "embed")}
+        out.update({g: (None, None, None) for g in ("r_z", "r_i", "r_f", "r_o")})
+        return out
+    if kind == "mamba":
+        return {"in_proj": ("embed", "d_inner"), "conv_w": (None, "d_inner"), "conv_b": ("d_inner",),
+                "x_proj": ("d_inner", None), "dt_proj": (None, "d_inner"), "dt_bias": ("d_inner",),
+                "A_log": ("d_inner", None), "D_skip": ("d_inner",), "out_proj": ("d_inner", "embed")}
+    if cfg.kv_lora_rank:
+        return {"wq": ("embed", "heads"), "w_kv_down": ("embed", None), "w_uk": (None, "heads", None),
+                "w_uv": (None, "heads", None), "wo": ("heads", "embed")}
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"), "wv": ("embed", "kv_heads"),
+            "wo": ("heads", "embed")}
+
+
+def _ffn_axes(cfg: ModelConfig, use_moe: bool) -> Dict[str, Tuple]:
+    """One layer's FFN leaves and their logical axes (the reference's
+    ``init_mlp`` and ``init_moe``: the shared expert's F dim is "mlp" under
+    all-reduce dispatch, replicated under all-to-all)."""
+    if not use_moe:
+        return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    glu = cfg.mlp_kind in ("swiglu", "geglu")
+    out = {k: ax for k, ax in moe_mod._LOGICAL_AXES.items() if k != "wg" or glu}
+    if cfg.moe_shared_experts:
+        ax = None if cfg.moe_dispatch == "alltoall" else "mlp"
+        out.update(shared_wi=("embed", ax), shared_wo=(ax, "embed"))
+        if glu:
+            out["shared_wg"] = ("embed", ax)
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of every leaf of ``init_model(cfg)``'s tree, a tuple
+    of names (None: replicated) one per dim, with the leading "layers" axis
+    of the stacked stages: the reference's ``init_model(...)[1]``.  The
+    specs of ``launch.sharding`` are derived from it."""
+    _require_ported_config(cfg)
+    layered = lambda tree: {k: ("layers",) + ax for k, ax in tree.items()}  # noqa: E731
+    axes: Dict[str, Any] = {}
+    if cfg.frontend == "token":
+        axes["embed"] = {"tokens": ("vocab", "embed")}
+    for si, spec in enumerate(cfg.stages):
+        stage = {}
+        for i, kind in enumerate(spec.kinds):
+            use_moe = bool(spec.moe[i]) and cfg.moe_experts > 0
+            block: Dict[str, Any] = {"norm1": (None,), "mixer": _mixer_axes(cfg, kind)}
+            if cfg.post_norm:
+                block["norm1_post"] = (None,)
+            if (cfg.d_ff or use_moe) and kind not in _XLSTM_KINDS:
+                block["norm2"] = (None,)
+                block["ffn"] = _ffn_axes(cfg, use_moe)
+                if cfg.post_norm:
+                    block["norm2_post"] = (None,)
+            stage[f"b{i}"] = {k: layered(v) if isinstance(v, dict) else ("layers",) + v for k, v in block.items()}
+        axes[f"stage{si}"] = stage
+    axes["final_norm"] = (None,)
+    if not cfg.tie_embeddings or cfg.frontend != "token":
+        axes["head"] = ("embed", "vocab")
+    return axes
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16, device="cuda"):
     """Cache: list per stage of {b<i>: leaves stacked (repeats, ...)}:
     attention {k, v} (repeats, B, S, KV, dh) in ``dtype`` (MLA {latent,
@@ -275,12 +347,26 @@ def _unbind_layers(tree: Any, repeats: int) -> List[Any]:
     return list(torch.unbind(tree, 0))
 
 
+def _pre_norm(params, key: str, x, cfg: ModelConfig):
+    """The pre-norm ``params[key]`` of a sub-block: under a tensor-parallel
+    plan the start of its region, where the residual stream and the norm's
+    scale enter it (``parallel.pre_norm``: their gradients from the region
+    are partial, summed over the model axis)."""
+    if parallel.tp_plan() is None:
+        return rms_norm(x, params[key], cfg.norm_eps)
+    return parallel.pre_norm(x, params[key], cfg.norm_eps)
+
+
 def _apply_block(
     params, x, cfg: ModelConfig, kind: str, use_moe: bool, positions, cache_entry=None, decode_pos=None
 ):
-    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    tp = parallel.tp_plan() is not None
+    h = _pre_norm(params, "norm1", x, cfg)
+    new_entry = None
     with name_scope("mixer"):
-        if kind == "mlstm":
+        if tp:
+            h = parallel.attention(params["mixer"], h, cfg, kind, positions)
+        elif kind == "mlstm":
             h, new_entry = xlstm_mod.mlstm_block(
                 params["mixer"], h, cfg, cache_entry, decode=decode_pos is not None
             )
@@ -300,10 +386,12 @@ def _apply_block(
         h = rms_norm(h, params["norm1_post"], cfg.norm_eps)
     x = x + h
     if "norm2" in params:
-        h = rms_norm(x, params["norm2"], cfg.norm_eps)
+        h = _pre_norm(params, "norm2", x, cfg)
         with name_scope("ffn"):
             if use_moe:
                 h = moe_mod.moe_ffn(params["ffn"], h, cfg)
+            elif tp:
+                h = parallel.mlp(params["ffn"], h, cfg)
             else:
                 h = mlp(params["ffn"], h, cfg.mlp_kind)
         if cfg.post_norm:
@@ -358,6 +446,8 @@ def _embed_input(params, cfg: ModelConfig, inp: torch.Tensor) -> torch.Tensor:
     ``cfg.param_dtype`` (in bf16 the stub's float32 frames are rounded
     here, as in the reference)."""
     if cfg.frontend == "token":
+        if parallel.tp_plan() is not None:
+            return parallel.embed(params["embed"], inp, cfg)
         return embed(params["embed"], inp, cfg.embed_scale, cfg.d_model)
     return inp.to(getattr(torch, cfg.param_dtype))
 
@@ -404,7 +494,10 @@ def loss_chunk(S: int) -> int:
 def _chunk_nll(params, cfg: ModelConfig, xc, tc, mc) -> torch.Tensor:
     """Summed masked NLL of one sequence chunk: the head, a float32
     logsumexp and a gather of the target logit (exact, where the reference
-    contracts with a one-hot to keep the vocab dim sharded)."""
+    contracts with a one-hot to keep the vocab dim sharded); vocab-parallel
+    under a tensor-parallel plan (``parallel.chunk_nll``)."""
+    if parallel.tp_plan() is not None:
+        return parallel.chunk_nll(params, cfg, xc, tc, mc)
     logits = _logits(params, cfg, xc).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     lab = torch.gather(logits, -1, tc.to(torch.int64)[..., None])[..., 0]
@@ -442,7 +535,20 @@ def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
     for j in range(0, S, c):
         part = (params, cfg, x[:, j:j + c], targets[:, j:j + c], mask[:, j:j + c])
         total = total + (checkpoint(_chunk_nll, *part, use_reentrant=False) if grad else _chunk_nll(*part))
-    return total / torch.clamp(torch.sum(mask), min=1.0)
+    return _masked_mean(total, mask)
+
+
+def _masked_mean(total: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The NLL sum over ``max(sum(mask), 1)``; under a plan whose batch is
+    split over ranks, the rank's sum over the *global* mask count, summed
+    over the batch axes (``parallel.batch_sum``): the global masked mean on
+    every rank."""
+    plan = parallel.current()
+    den = torch.sum(mask)
+    if plan is None or not plan.batch_axes:
+        return total / torch.clamp(den, min=1.0)
+    den = plan.mesh.psum(den, plan.batch_axes)
+    return parallel.batch_sum(total / torch.clamp(den, min=1.0))
 
 
 @torch.no_grad()

@@ -6,14 +6,18 @@ States keep the reference's layout — ``{"mu"}``, ``{"m", "v"}``, ``{"acc":
 either package restores in the other.  The math is the reference's, step
 for step in float32, and each new value is cast back to its leaf's dtype.
 
-``update(grads, state, params, step, ok=None)`` writes the new params and
-state **in place** (under ``torch.no_grad``) and returns them.  Given
+``update(grads, state, params, step, ok=None, norm=None)`` writes the new
+params and state **in place** (under ``torch.no_grad``) and returns them;
+``norm`` is the grads' global norm where the caller has it (over a mesh
+only the caller can take it, ``global_norm(grads, specs, mesh)``).  Given
 ``ok`` (a 0-d bool tensor), every leaf keeps its old value where ``ok`` is
 false, selected by ``torch.where`` on the device leaf by leaf: no host
 read, and never a second copy of the whole state.  Layer-stacked leaves
 large enough for the reference's ``_maybe_layerwise`` are updated one
 leading-axis slice at a time, as its ``lax.map`` does (Adafactor's update
-clipping then takes each slice's RMS, as there).
+clipping then takes each slice's RMS, as there); SGD's and AdamW's
+elementwise updates of other large leaves run in blocks of rows (the same
+values, in less memory).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from repro_torch.tree import flatten, leaves, tree_map
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., Tuple[Any, Any]]
-    # update(grads, state, params, step, ok=None) -> (params, state), in place
+    # update(grads, state, params, step, ok=None, norm=None) -> (params, state), in place
 
 
 LAYERWISE_MIN_DIM = 3  # leaves stacked over layers get chunked updates
@@ -37,12 +41,22 @@ def _layerwise(p: torch.Tensor) -> bool:
     return p.ndim >= LAYERWISE_MIN_DIM and p.shape[0] <= 128 and p.numel() > (1 << 24)
 
 
-def _apply(fn, ok: Optional[torch.Tensor], outs, *args) -> None:
+ELEMENTWISE_BLOCK = 1 << 24  # elements an elementwise update of a large leaf takes at a time
+
+
+def _apply(fn, ok: Optional[torch.Tensor], outs, *args, elementwise: bool = False) -> None:
     """``fn(*args)`` -> new values, written into ``outs`` (kept where not
-    ``ok``); per leading-axis slice when the first arg is layerwise."""
+    ``ok``); per leading-axis slice when the first arg is layerwise.  An
+    ``elementwise`` ``fn`` (SGD's, AdamW's) runs over a large leaf in blocks
+    of rows, the same values with a block's float32 temporaries in memory
+    rather than the leaf's (a vocabulary table's would be GBs)."""
     if _layerwise(args[0]):
         for i in range(args[0].shape[0]):
             _apply_one(fn, ok, [o[i] for o in outs], *(a[i] for a in args))
+    elif elementwise and args[0].ndim and args[0].numel() > ELEMENTWISE_BLOCK:
+        rows = max(1, ELEMENTWISE_BLOCK * args[0].shape[0] // args[0].numel())
+        for i in range(0, args[0].shape[0], rows):
+            _apply_one(fn, ok, [o[i:i + rows] for o in outs], *(a[i:i + rows] for a in args))
     else:
         _apply_one(fn, ok, outs, *args)
 
@@ -53,12 +67,26 @@ def _apply_one(fn, ok, outs, *args) -> None:
         o.copy_(n if ok is None else torch.where(ok, n, o))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32))) for l in leaves(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  Over a ``mesh`` each rank holds
+    its block of a leaf split by its spec (``specs``, a tree of
+    ``launch.sharding`` specs): the squares are summed over the axes each
+    leaf is split over, so a split leaf counts each block once and a
+    replicated leaf once, and every rank gets the same norm."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32))) for l in leaves(tree)))
+    by_axes = {}
+    for leaf, spec in zip(leaves(tree), leaves(specs)):
+        axes = tuple(a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,)))
+        sq = torch.sum(torch.square(leaf.to(torch.float32)))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    return torch.sqrt(sum(mesh.psum(sq, axes) if axes else sq for axes, sq in by_axes.items()))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm: Optional[torch.Tensor] = None):
+    """The tree scaled to at most ``max_norm``; ``norm`` is its global norm
+    where the caller has it (over a mesh, ``global_norm(tree, specs, mesh)``)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), tree), norm
 
@@ -73,8 +101,8 @@ def sgd(lr_fn, momentum: float = 0.9, clip_norm: float = 1.0) -> Optimizer:
         return {"mu": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step, ok=None):
-        grads, _ = clip_by_global_norm(grads, clip_norm)
+    def update(grads, state, params, step, ok=None, norm=None):
+        grads, _ = clip_by_global_norm(grads, clip_norm, norm)
         lr = lr_fn(_step_tensor(step, params))
 
         def upd(p, g, m):
@@ -82,7 +110,7 @@ def sgd(lr_fn, momentum: float = 0.9, clip_norm: float = 1.0) -> Optimizer:
             return (p - lr * m1).to(p.dtype), m1
 
         for p, g, m in zip(leaves(params), leaves(grads), leaves(state["mu"])):
-            _apply(upd, ok, (p, m), p, g, m)
+            _apply(upd, ok, (p, m), p, g, m, elementwise=True)
         return params, state
 
     return Optimizer(init, update)
@@ -101,8 +129,8 @@ def adamw(
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step, ok=None):
-        grads, _ = clip_by_global_norm(grads, clip_norm)
+    def update(grads, state, params, step, ok=None, norm=None):
+        grads, _ = clip_by_global_norm(grads, clip_norm, norm)
         step = _step_tensor(step, params)
         lr = lr_fn(step)
         t = step.to(torch.float32) + 1.0
@@ -119,7 +147,7 @@ def adamw(
             return p1.to(p.dtype), m1, v1
 
         for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]), leaves(state["v"])):
-            _apply(upd, ok, (p, m, v), p, g, m, v)
+            _apply(upd, ok, (p, m, v), p, g, m, v, elementwise=True)
         return params, state
 
     return Optimizer(init, update)
@@ -154,7 +182,7 @@ def adafactor(
         return {"acc": tree_map(one, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step, ok=None):
+    def update(grads, state, params, step, ok=None, norm=None):  # no global clipping: ``norm`` unused
         step = _step_tensor(step, params)
         lr = lr_fn(step)
         t = step.to(torch.float32) + 1.0

@@ -40,7 +40,7 @@ def test_port_has_the_expected_modules():
         "tree.py", "optim/optimizers.py", "optim/schedules.py", "data/pipeline.py", "train/loop.py",
         "launch/train.py", "launch/mesh.py", "train/compression.py", "configs/deepseek_v2_236b.py",
         "launch/serve.py", "models/ssm.py", "configs/jamba_52b.py", "configs/musicgen_large.py",
-        "configs/pixtral_12b.py",
+        "configs/pixtral_12b.py", "launch/sharding.py", "models/parallel.py",
     ):
         assert want in names, want
     for src in ("crossbar_vmm.cu", "slstm_scan.cu"):

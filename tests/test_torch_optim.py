@@ -178,6 +178,30 @@ def test_kept_where_not_ok():
             np.testing.assert_array_equal(flatten(after)[k], v, err_msg=f"{name} {k}")
 
 
+@pytest.mark.parametrize("name", ["sgd", "adamw"])
+def test_row_blocked_update_is_the_whole_update(name, monkeypatch):
+    """SGD's and AdamW's update of a leaf past ``ELEMENTWISE_BLOCK``
+    elements runs in blocks of rows (a vocabulary table's float32
+    temporaries would take GBs): the same values as in one piece, for a
+    step that applies and one that is kept."""
+    from repro_torch.optim import optimizers as oo
+
+    rng = np.random.default_rng(6)
+    table = rng.normal(size=(37, 24)).astype(np.float32)
+    grads = {"t": torch.from_numpy(rng.normal(size=(37, 24)).astype(np.float32))}
+    runs = []
+    for block in (1 << 30, 100):  # one piece; blocks of 4 rows (100 // 24)
+        monkeypatch.setattr(oo, "ELEMENTWISE_BLOCK", block)
+        opt = topt.make_optimizer(name, topt.constant(1e-2))
+        p = {"t": torch.from_numpy(table.copy())}
+        st = opt.init(p)
+        for ok in (True, False, True):
+            opt.update(grads, st, p, 0, ok=torch.tensor(ok))
+        runs.append(tree_to_numpy({"p": p, "s": st}))
+    for k, v in flatten(runs[0]).items():
+        np.testing.assert_array_equal(flatten(runs[1])[k], v, err_msg=f"{name} {k}")
+
+
 def test_global_norm_and_clip_match_reference():
     rng = np.random.default_rng(2)
     tree = _tree(rng)

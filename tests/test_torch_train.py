@@ -298,9 +298,38 @@ def test_launcher_resumes(tmp_path, capsys):
 
 
 def test_launcher_refuses_model_parallel(capsys):
+    """Over a mesh an MoE config (and one with ``cfg.fsdp``) is refused,
+    naming the roadmap item, and not trained replicated."""
     with pytest.raises(SystemExit):
-        launcher.main(["--arch", "smollm-360m", "--model-parallel", "2", "--device", "cpu"])
-    assert "sharding" in capsys.readouterr().err
+        launcher.main(["--arch", "deepseek-v2-236b", "--reduced", "--model-parallel", "2", "--ranks", "4",
+                       "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "MoE" in err and launcher.MESH_REFUSED in err
+
+
+def test_launcher_trains_and_resumes_over_a_mesh(tmp_path, capfd):
+    """``--model-parallel 2 --ranks 4``: a (2, 2) mesh of spawned ranks
+    trains, checkpoints the whole tree and resumes it."""
+    args = ["--arch", "smollm-360m", "--reduced", "--batch", "4", "--seq", "16", "--ckpt-dir", str(tmp_path),
+            "--device", "cpu", "--model-parallel", "2", "--ranks", "4"]
+    launcher.main(args + ["--steps", "2"])
+    first = capfd.readouterr().out
+    assert "mesh=(data 2, model 2)" in first and "resumed" not in first and "[train] done" in first
+    assert latest_step(str(tmp_path)) == 2
+    launcher.main(args + ["--steps", "3"])
+    second = capfd.readouterr().out
+    assert "[train] resumed from step 2" in second and "[train] done" in second
+    assert latest_step(str(tmp_path)) == 3
+
+
+def test_launcher_trains_pure_dp_over_a_mesh(capfd):
+    """xlstm's ``pure_dp`` layout over 4 ranks (the batch over both axes),
+    reduced: the launcher keeps the config's layout (its sLSTM blocks have
+    no tensor-parallel form)."""
+    launcher.main(["--arch", "xlstm-350m", "--reduced", "--batch", "4", "--seq", "16", "--device", "cpu",
+                   "--model-parallel", "2", "--ranks", "4", "--steps", "1"])
+    out = capfd.readouterr().out
+    assert "layout=pure_dp" in out and "[train] done" in out
 
 
 def test_crossbar_mode_trains_nothing(small):
